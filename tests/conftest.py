@@ -19,3 +19,8 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 assert jax.default_backend() == "cpu", jax.default_backend()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skipped without one")
