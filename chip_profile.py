@@ -16,10 +16,14 @@ needs a CUDA device and ``nvcc``, and imports nothing of JAX. On the
    ancillary wind, seeds 7 and 8, 2**20 pixels each. Differing pixels are
    split into one-LUT-step flips (speed within one wspd step and direction
    within one phi step of exact) and the rest, with the exact-form cost
-   of the fused winner above the plane's minimum.
+   of the fused winner above the plane's minimum;
+6. steps 2-4 again for the unfused tail, on ``chip_smoke.py``'s phase-7
+   pair (CMOD7 high-res with the sarwing crosspol LUT on its own
+   incidence axis).
 
-With ``--out DIR`` it writes the profiler's table to
-``DIR/profile_table.txt`` and the summary to ``DIR/chip_profile.json``.
+With ``--out DIR`` it writes the profiler's tables to
+``DIR/profile_table.txt`` and ``DIR/profile_table_unfused.txt`` and the
+summary to ``DIR/chip_profile.json``.
 The last line of its output is the summary as JSON.
 """
 
@@ -30,12 +34,13 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import cost_gaps, log, make_scene
+from chip_smoke import cost_gaps, log, make_scene, unfused_pair
 
 MODELS = ("gmf_cmod5n", "gmf_s1_v2")
 
@@ -60,7 +65,7 @@ def union_us(intervals):
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def profile_call(torch, once, out_dir):
+def profile_call(torch, once, out_dir, table_name):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,7 +79,7 @@ def profile_call(torch, once, out_dir):
         per_name[e.name] = per_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy_us = union_us([(e.time_range.start, e.time_range.end) for e in dev])
     if out_dir is not None:
-        (out_dir / "profile_table.txt").write_text(
+        (out_dir / table_name).write_text(
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
@@ -120,6 +125,34 @@ def off_gmf_scene(n, seed):
             rng.uniform(0.5, 25.0, n) * np.exp(1j * rng.uniform(0.0, 2 * np.pi, n)))
 
 
+def profile_and_rate(torch, tables, dev, out_dir, table_name, reps, what):
+    """One profiled device-resident fused call after a warm-up, then the
+    rate over ``reps`` calls without the profiler."""
+    from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
+
+    n = dev[0].shape[0]
+
+    def once():
+        out = invert_pixels(tables, *dev, mode="fused", device="cuda", device_output=True)
+        torch.cuda.synchronize()
+        return out
+
+    once()
+    prof = profile_call(torch, once, out_dir, table_name)
+    log(f"{what}: profiled call ({n} px): wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_busy_ms']:.3f} ms (share {prof['busy_share']}), per kernel "
+        f"{json.dumps(prof['kernels_ms'])}")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        once()
+        times.append(time.perf_counter() - t0)
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    rate = {"mpx_s": n / med / 1e6, "median_s": med, "q1_s": q1, "q3_s": q3, "runs": reps}
+    log(f"{what}: rate over {reps} calls: {json.dumps(rate)}")
+    return prof, rate
+
+
 def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
     import torch
 
@@ -128,7 +161,7 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
         return 1
     from xsarsea_tpu_torch.models import get_model
     from xsarsea_tpu_torch.ops import inversion_kernels as K
-    from xsarsea_tpu_torch.windspeed.inversion import invert_pixels, prepare_tables
+    from xsarsea_tpu_torch.windspeed.inversion import prepare_tables
 
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -140,26 +173,8 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
     sc = make_scene(torch, get_model, n)
     tables = prepare_tables(*MODELS, dtype=torch.float32)
     dev = to_device(torch, sc["inc"], sc["s0_co_db"], sc["s0_cr_db"], sc["dsig_cr"], sc["anc"])
-
-    def once():
-        out = invert_pixels(tables, *dev, mode="fused", device="cuda", device_output=True)
-        torch.cuda.synchronize()
-        return out
-
-    once()
-    prof = profile_call(torch, once, out_dir)
-    log(f"profiled call ({n} px): wall {prof['wall_ms']:.3f} ms, device busy "
-        f"{prof['device_busy_ms']:.3f} ms (share {prof['busy_share']}), per kernel "
-        f"{json.dumps(prof['kernels_ms'])}")
-
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        once()
-        times.append(time.perf_counter() - t0)
-    q1, med, q3 = statistics.quantiles(times, n=4)
-    rate = {"mpx_s": n / med / 1e6, "median_s": med, "q1_s": q1, "q3_s": q3, "runs": reps}
-    log(f"rate over {reps} calls: {json.dumps(rate)}")
+    prof, rate = profile_and_rate(torch, tables, dev, out_dir, "profile_table.txt", reps,
+                                  "fused tail")
 
     bench = compare(torch, tables, sc["inc"][:n_cmp], sc["s0_co_db"][:n_cmp],
                     sc["s0_cr_db"][:n_cmp], sc["dsig_cr"][:n_cmp], sc["anc"][:n_cmp])
@@ -169,8 +184,20 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
         off[seed] = compare(torch, tables, *off_gmf_scene(n_cmp, seed))
         log(f"fused vs exact, off-GMF seed {seed}: {json.dumps(off[seed])}")
 
+    # the unfused tail: K1, K3, K4 on the phase-7 pair of chip_smoke.py
+    with tempfile.TemporaryDirectory() as tmp:
+        tables_u, _, s0_cr_db_u = unfused_pair(sc, Path(tmp))
+    dev = to_device(torch, sc["inc"], sc["s0_co_db"], s0_cr_db_u, sc["dsig_cr"], sc["anc"])
+    prof_u, rate_u = profile_and_rate(torch, tables_u, dev, out_dir,
+                                      "profile_table_unfused.txt", reps, "unfused tail")
+    del dev
+    bench_u = compare(torch, tables_u, sc["inc"][:n_cmp], sc["s0_co_db"][:n_cmp],
+                      s0_cr_db_u[:n_cmp], sc["dsig_cr"][:n_cmp], sc["anc"][:n_cmp])
+    log(f"unfused tail: fused vs exact, bench scene first {n_cmp} px: {json.dumps(bench_u)}")
+
     summary = {"card": card, "profile": prof, "rate": rate, "bench_parity": bench,
-               "off_gmf_parity": off}
+               "off_gmf_parity": off,
+               "unfused": {"profile": prof_u, "rate": rate_u, "bench_parity": bench_u}}
     if out_dir is not None:
         (out_dir / "chip_profile.json").write_text(json.dumps(summary, indent=1))
     log(json.dumps(summary))

@@ -11,7 +11,8 @@ import torch
 
 from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import inversion_kernels as K
-from xsarsea_tpu_torch.windspeed.inversion import invert_pixels, prepare_tables
+from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_pixels, \
+    prepare_tables
 
 from _parity import assert_equal_modulo_pi_ties
 
@@ -77,7 +78,90 @@ def test_kernels_bit_equal_to_plain_versions(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got2, ref2)
     assert (got2[0, 0] == 0).any()  # the NaN LUT entry poisons some of block 0's pixels
-    assert K.launch_counts() == {"group_argmin": 1, "slab_refine_fused": 1}
+    assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "group_argmin": 1,
+                                 "slab_refine_fused": 1}
+
+
+def test_k3_k4_bit_equal_to_plain_versions(cuda):
+    """K3 (slab_refine) and K4 (crosspol_argmin) against their plain
+    versions, sentinels included: a NaN LUT entry (2**30), a pixel with no
+    finite cost (1/dsig = inf), padding slots and rows, skipped blocks, NaN
+    crosspol inputs and has_co = 0."""
+    rng = np.random.default_rng(3)
+    lut, wspd, phir, u, v, crlut, crw = _operands(rng)
+    dev = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    K.reset_launch_counts()
+    lut_pad, u_pad, v_pad = (dev(a) for a in K.build_direct_arrays(lut, u, v))
+    wp = lut_pad.shape[1]
+    nb = 13
+    sband = rng.integers(0, 6, nb).astype(np.int32)
+    sband[0] = 1
+    srow0 = np.clip(rng.integers(0, 8, nb) * 16 - 16, 0, wp - 48).astype(np.int32)
+    srow0[0], srow0[1] = 16, wp - 48
+    n = nb * 128
+    feats = np.stack([rng.uniform(-30, -5, n), rng.uniform(-12, 12, n), rng.uniform(0, 12, n),
+                      np.full(n, 10.0)], 1).astype(np.float32)
+    feats[3] = np.nan
+    feats[300, 3] = np.inf
+    vmask = np.ones(nb, np.int32)
+    vmask[7] = 0
+    args3 = (lut_pad, u_pad, v_pad, dev(feats), dev(sband), dev(srow0), dev(vmask))
+    got3 = K.slab_refine(*args3)
+    ref3 = K._slab_refine_plain(*args3, block=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got3, ref3)
+    assert (got3[0] == 2 ** 30).any() and got3.reshape(-1)[3] == 2 ** 30
+    assert got3.reshape(-1)[300] == ((2 ** 30 // 181) & ~1) * 181
+
+    nb4 = 9
+    n4 = nb4 * 256
+    has_co = (rng.random(n4) < 0.8).astype(np.float32)
+    feats4 = np.stack([rng.uniform(-38, -22, n4), rng.uniform(0.1, 1.0, n4),
+                       has_co * rng.uniform(0, 20, n4), has_co], 1).astype(np.float32)
+    feats4[5, 0] = np.nan
+    feats4[6, 1] = np.nan
+    feats4[-30:] = np.nan
+    args4 = (*(dev(a) for a in K.build_crosspol_arrays(crlut, crw)), dev(feats4),
+             dev(rng.integers(0, 6, nb4)))
+    got4 = K.crosspol_argmin(*args4)
+    ref4 = K._crosspol_argmin_plain(*args4, block=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got4, ref4)
+    assert (got4.reshape(-1)[[5, 6]] == 0).all() and (got4.reshape(-1)[:5] > 0).all()
+    assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "slab_refine": 1,
+                                 "crosspol_argmin": 1}
+
+
+def test_unfused_tail_equals_exact_on_card(cuda):
+    """A crosspol LUT on its own incidence axis: K1, K3 and K4 on the card
+    give the exact path's winds and the CPU run's winners."""
+    kw = dict(inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    tables = InversionTables(get_model("gmf_cmod5n").to_lut(units="dB", **kw),
+                             get_model("gmf_s1_v2").to_lut(units="dB", **{**kw, "inc_step": 0.7}))
+    rng = np.random.default_rng(4)
+    n = 4000
+    inc = rng.uniform(18.0, 47.0, n)
+    speed = rng.uniform(0.5, 40.0, n)
+    phi = rng.uniform(0.0, 360.0, n)
+    s0_co = 10 * np.log10(get_model("gmf_cmod5n")(inc, speed, phi, broadcast=True).numpy()
+                          + 1e-15)
+    s0_cr = 10 * np.log10(get_model("gmf_s1_v2")(inc, speed, broadcast=True).numpy() + 1e-15)
+    anc = (speed + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * np.deg2rad(phi))
+    inc[0] = np.nan
+    s0_co[1] = np.nan
+    args = (inc, s0_co, s0_cr, np.full(n, 0.1), anc)
+    K.reset_launch_counts()
+    fused = invert_pixels(tables, *args, mode="auto", device=cuda)
+    counts = K.launch_counts()
+    assert counts["slab_refine_fused"] == 0
+    assert min(counts[k] for k in ("group_argmin", "slab_refine", "crosspol_argmin")) >= 1
+    exact = invert_pixels(tables, *args, mode="exact", device=cuda)
+    cpu = invert_pixels(tables, *args, mode="fused", device="cpu")
+    for f, e, c in zip(fused, exact, cpu):
+        assert_equal_modulo_pi_ties(f, e)
+        np.testing.assert_array_equal(np.isnan(f), np.isnan(c))
+        ok = ~np.isnan(c)
+        assert (np.abs(f[ok] - c[ok]) <= 2.0 ** -21 * np.abs(c[ok])).all()
 
 
 def test_fused_equals_exact_on_card(cuda):
@@ -96,7 +180,8 @@ def test_fused_equals_exact_on_card(cuda):
     args = (inc, s0_co, s0_cr, np.full(n, 0.1), anc)
     K.reset_launch_counts()
     fused = invert_pixels(tables, *args, mode="auto", device=cuda)
-    assert min(K.launch_counts().values()) >= 1
+    counts = K.launch_counts()
+    assert counts["group_argmin"] >= 1 and counts["slab_refine_fused"] >= 1
     exact = invert_pixels(tables, *args, mode="exact", device=cuda)
     cpu = invert_pixels(tables, *args, mode="fused", device="cpu")
     for f, e, c in zip(fused, exact, cpu):
@@ -129,3 +214,13 @@ def test_kernel_wrappers_raise_not_fall_back(cuda):
         K.slab_refine_fused(*ops, one * 2, one * 0, one)  # band 2 of a 2-band LUT
     with pytest.raises(ValueError, match="srow0"):
         K.slab_refine_fused(*ops, one * 0, one * (wp - K.SLAB_ROWS + 1), one)
+    feats4 = torch.zeros((128, 4), device=cuda)
+    with pytest.raises(ValueError, match="sband"):
+        K.slab_refine(*ops[:3], feats4, one * 2, one * 0, one)
+    with pytest.raises(ValueError, match="srow0"):
+        K.slab_refine(*ops[:3], feats4, one * 0, one * (wp - K.SLAB_ROWS + 1), one)
+    with pytest.raises(ValueError, match="band_of_block"):
+        K.crosspol_argmin(*ops[5:7], torch.zeros((256, 4), device=cuda), one * 2)
+    with pytest.raises(ValueError, match="aligned"):
+        K.crosspol_argmin(*ops[5:7], torch.zeros(256 * 4 + 1, device=cuda)[1:].reshape(256, 4),
+                          one * 0)

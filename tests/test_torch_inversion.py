@@ -314,11 +314,13 @@ def test_mode_resolution_and_errors():
     assert inv._resolve_mode("auto", cr_only, "cuda") == "exact"
     with pytest.raises(ValueError, match="copol"):
         inv._make_fused_invert_fn(cr_only, "cpu")
+    # a crosspol LUT on another incidence axis takes the unfused tail (K3/K4,
+    # tests/test_torch_unfused.py) in the fused and auto modes alike
     shifted = InversionTables.from_arrays(
         tt.co_lut, lut_co.coords["incidence"], lut_co.coords["wspd"], lut_co.coords["phi"],
         tt.cr_lut, lut_cr.coords["incidence"] + 0.25, lut_cr.coords["wspd"])
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        inv._make_fused_invert_fn(shifted, "cpu")
+    assert inv._resolve_mode("auto", shifted, "cuda") == "fused"
+    assert callable(inv._make_fused_invert_fn(shifted, "cpu"))
     assert co_only.has_co and not co_only.has_cr
     with pytest.raises(ValueError, match="3-D"):
         InversionTables(DimArray(tt.cr_lut, dims=("incidence", "wspd")), None)
@@ -404,7 +406,9 @@ def test_prepare_tables_cached_and_f64_default_on_cpu():
 
 def test_port_imports_no_jax():
     code = ("import sys, xsarsea_tpu_torch, xsarsea_tpu_torch.windspeed.inversion, "
-            "xsarsea_tpu_torch.ops.inversion_kernels\n"
+            "xsarsea_tpu_torch.ops.inversion_kernels, xsarsea_tpu_torch.io.lut_io, "
+            "xsarsea_tpu_torch.models.cmod7, xsarsea_tpu_torch.models.nc_lut, "
+            "xsarsea_tpu_torch.models.pickle_lut\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'ml_dtypes'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

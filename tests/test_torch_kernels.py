@@ -1,6 +1,7 @@
 """The fused inversion's kernels (plain PyTorch versions, on the CPU)
 against the JAX package's Pallas kernels run in interpret mode, and the
-coarse pass's contract with the exact path.
+coarse pass's contract with the exact path. K2, K3 and K4 are held bit for
+bit, NaN sentinels and first-minimum ties included.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against these plain versions there.
@@ -101,7 +102,108 @@ def test_slab_refine_fused_plain_copol_only_and_skipped_blocks():
     keep = np.arange(nb) != 4
     np.testing.assert_array_equal(got[keep, :2], ref[keep, :2])
     assert (got[:, 2:] == 0).all() and (got[4] == 0).all()
-    assert K.launch_counts() == {"group_argmin": 0, "slab_refine_fused": 0}
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+
+
+def _tied_direct_case(seed, n_inc=4, n_wspd=70, n_phi=37, nb=7):
+    """K3 operands with exact cost ties and every sentinel: duplicated phi
+    columns 4/5 and wspd rows 19/20 (pixels placed exactly on them tie at
+    cost 0), a NaN LUT entry inside block 0's slab, padding slots, a pixel
+    with no finite cost (1/dsig = inf), slabs reaching into the padding rows
+    and skipped all-padding blocks."""
+    rng = np.random.default_rng(seed)
+    wspd = np.linspace(0.2, 30, n_wspd).astype(np.float32)
+    wspd[20] = wspd[19]
+    phir = np.deg2rad(np.linspace(0, 180, n_phi)).astype(np.float32)
+    phir[5] = phir[4]
+    lut = rng.uniform(-35, 0, (n_inc, n_wspd, n_phi)).astype(np.float32)
+    lut[:, :, 5] = lut[:, :, 4]
+    lut[:, 20, :] = lut[:, 19, :]
+    lut[1, 30, 9] = np.nan
+    u = (wspd[:, None] * np.cos(phir)[None, :]).astype(np.float32)
+    v = (wspd[:, None] * np.sin(phir)[None, :]).astype(np.float32)
+    port = K.build_direct_arrays(lut, u, v)
+    wp = port[0].shape[1]
+    sband = rng.integers(0, n_inc, nb).astype(np.int32)
+    # block 4's slab straddles the last true row, block 6's holds padding rows only
+    srow0 = np.array([16, 0, 16, 0, 48, 16, wp - K.SLAB_ROWS], np.int32)[:nb]
+    sband[0] = 1  # row 30 of band 1 holds the NaN
+    n = nb * K.SLAB_BLOCK
+    feats = np.stack([rng.uniform(-30, -5, n), rng.uniform(-12, 12, n), rng.uniform(0, 12, n),
+                      np.full(n, 10.0)], 1).astype(np.float32)
+    # block 2 (band sband[2], rows 16..63): pixels exactly on the tied cells
+    b2 = 2 * K.SLAB_BLOCK
+    for k, (r, c) in enumerate([(19, 4), (20, 5), (19, 5), (25, 4), (40, 5)]):
+        feats[b2 + k, :3] = lut[sband[2], r, c], u[r, c] * 0.5, v[r, c] * 0.5
+    feats[5] = np.nan              # a padding slot
+    feats[b2 + 10, 3] = np.inf     # no finite cost
+    feats[3 * K.SLAB_BLOCK:4 * K.SLAB_BLOCK] = np.nan  # an all-padding block
+    vmask = np.ones(nb, np.int32)
+    vmask[3] = 0
+    return lut, u, v, port, feats, sband, srow0, vmask, n_phi
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_slab_refine_plain_bit_equal_to_pallas(seed):
+    lut, u, v, port, feats, sband, srow0, vmask, n_phi = _tied_direct_case(seed)
+    ref = np.asarray(jpi.slab_refine_pallas(
+        *(jnp.asarray(a) for a in jpi.build_direct_arrays(lut, u, v)), jnp.asarray(feats),
+        jnp.asarray(sband), jnp.asarray(srow0), n_phi, n_rows=K.SLAB_ROWS, interpret=True,
+        valid_mask=jnp.asarray(vmask)))
+    got = K.slab_refine(*(torch.as_tensor(a) for a in port), torch.as_tensor(feats),
+                        torch.as_tensor(sband), torch.as_tensor(srow0),
+                        torch.as_tensor(vmask)).numpy()
+    # expected bit-equal on every block that runs: the same f32 op sequence,
+    # the same first-minimum rule and the same sentinels
+    live = vmask == 1
+    np.testing.assert_array_equal(got[live], ref[live])
+    assert got.dtype == np.int32 and (got[~live] == 0).all()
+    no_hit = ((2 ** 30 // n_phi) & ~1) * n_phi
+    assert (got[0] == 2 ** 30).any()  # the NaN LUT entry inside block 0's slab
+    assert got[0, 5] == 2 ** 30 and got[2, 10] == no_hit
+    # ties go to the lowest flat index: row 19 over 20, column 4 over 5
+    np.testing.assert_array_equal(got[2, :5], [19 * n_phi + 4] * 3 + [25 * n_phi + 4,
+                                                                   40 * n_phi + 4])
+    assert got[4].max() < lut.shape[1] * n_phi  # padding rows never win
+    assert (got[6] == no_hit).all()
+
+
+def _crosspol_case(seed, n_inc=5, n_cr=155, nb=6):
+    """K4 operands: a duplicated LUT entry (columns 10/11) that pixels hit
+    exactly with no copol prior, NaN crosspol sigma0, NaN dsig, has_co = 0,
+    padding slots."""
+    rng = np.random.default_rng(seed)
+    crlut = rng.uniform(-40, -20, (n_inc, n_cr)).astype(np.float32)
+    crlut[:, 11] = crlut[:, 10]
+    crw = np.linspace(3, 80, n_cr).astype(np.float32)
+    band = rng.integers(0, n_inc, nb).astype(np.int32)
+    n = nb * K.CR_BLOCK
+    wco = rng.uniform(0, 40, n).astype(np.float32)
+    has_co = (rng.random(n) < 0.8).astype(np.float32)
+    feats = np.stack([rng.uniform(-38, -22, n), rng.uniform(0.1, 1.0, n),
+                      np.where(has_co > 0, wco, 0) * 0.5, has_co], 1).astype(np.float32)
+    for k in range(4):  # exact ties at cost 0 with no prior: the first index wins
+        feats[k] = crlut[band[0], 10], 0.3, 0.0, 0.0
+    feats[7, 0] = np.nan
+    feats[8, 1] = np.nan
+    feats[9, 2:] = 0.0
+    feats[n - 20:] = np.nan  # padding slots
+    return crlut, crw, feats, band
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_crosspol_argmin_plain_bit_equal_to_pallas(seed):
+    crlut, crw, feats, band = _crosspol_case(seed)
+    ref = np.asarray(jpi.crosspol_argmin_pallas(
+        *(jnp.asarray(a) for a in jpi.build_crosspol_arrays(crlut, crw)), jnp.asarray(feats),
+        jnp.asarray(band), block=K.CR_BLOCK, interpret=True))
+    got = K.crosspol_argmin(*(torch.as_tensor(a) for a in K.build_crosspol_arrays(crlut, crw)),
+                            torch.as_tensor(feats), torch.as_tensor(band)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    flat = got.reshape(-1)
+    assert (flat[:4] == crw[10]).all()  # first minimum of the tied pair
+    assert flat[7] == 0 and flat[8] == 0 and flat[9] > 0 and (flat[-20:] == 0).all()
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
 
 
 def _group_argmin_loop(lut_c, u_c, v_c, row_group, feats, band_of_block, n_groups, block):
@@ -201,3 +303,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         K.slab_refine_fused(*(torch.empty(1),) * 7, torch.empty((128, 8), device="meta"),
                             *(torch.zeros(1, dtype=torch.int32),) * 3)
+    with pytest.raises(ValueError, match="device"):
+        K.slab_refine(*(torch.empty(1),) * 3, torch.empty((128, 4), device="meta"),
+                      *(torch.zeros(1, dtype=torch.int32),) * 3)
+    with pytest.raises(ValueError, match="device"):
+        K.crosspol_argmin(torch.empty(1, 1), torch.empty(1), meta, torch.zeros(1))

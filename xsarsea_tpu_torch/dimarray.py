@@ -2,7 +2,7 @@
 
 The payload is a numpy array or a ``torch.Tensor``; coordinates are host
 numpy arrays. Ported: dims/coords/attrs/name, ``copy``, ``assign_attrs``,
-``isel`` and separable linear ``interp``. The lerp in :meth:`_interp_1d`
+``item``, ``isel``, ``transpose`` and separable linear ``interp``. The lerp in :meth:`_interp_1d`
 keeps the reference's exact formula, ``data[i0] * (1 - w) + data[i1] * w``:
 high-resolution LUT values are these lerps of the low-resolution analytic
 grid, so the formula is part of LUT parity.
@@ -90,6 +90,9 @@ class DimArray:
         """Host numpy copy of the data."""
         return np.asarray(self.data.cpu() if _is_tensor(self.data) else self.data)
 
+    def item(self):
+        return self.values.item()
+
     def __array__(self, dtype=None, copy=None):
         arr = self.values
         return arr.astype(dtype) if dtype is not None else arr
@@ -133,6 +136,13 @@ class DimArray:
             elif dim in coords:
                 coords[dim] = coords[dim][idx]
         return DimArray(data, dims=dims, coords=coords, attrs=self.attrs, name=self.name)
+
+    def transpose(self, *dims):
+        """Reorder the dims (reversed when none are given)."""
+        dims = dims or self.dims[::-1]
+        axes = [self._axis(d) for d in dims]
+        data = self.data.permute(axes) if _is_tensor(self.data) else self.data.transpose(axes)
+        return DimArray(data, dims=dims, coords=self.coords, attrs=self.attrs, name=self.name)
 
     def interp(self, indexers=None, bounds_error=False, **kwargs):
         """Separable multilinear interpolation onto new 1-D coords per dim.

@@ -4,7 +4,6 @@ Counterpart of ``xsarsea_tpu.models.base``. LUTs are
 :class:`~xsarsea_tpu_torch.dimarray.DimArray` objects with host numpy
 payloads; re-gridding is separable linear interpolation. Alias resolution
 is a plain priority rule over the registry (no table library).
-``to_netcdf`` and ``register_luts`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from xsarsea_tpu_torch.utils import from_dB, to_dB
 
 logger = logging.getLogger("xsarsea_tpu_torch.models")
 
-__all__ = ["Model", "available_models", "get_model"]
+__all__ = ["LutModel", "Model", "available_models", "get_model", "register_luts"]
 
 
 def _grid(rng, step):
@@ -169,8 +168,60 @@ class Model:
         self._lut_cache[key] = lut
         return lut.copy()
 
+    def to_netcdf(self, file):
+        """Serialize this model as a dB LUT netCDF file (models.py:232-262):
+        copol models at low resolution, crosspol at high, as the reference."""
+        from xsarsea_tpu_torch.io.lut_io import write_lut
+
+        resolution = "low" if self.iscopol else "high"
+        lut = self.to_lut(resolution=resolution, units="dB")
+        attrs = {
+            "units": "dB",
+            "pol": self.pol,
+            "model": self.short_name or self.name,
+            "resolution": resolution,
+            "inc_range": np.asarray(self.inc_range, dtype=np.float64),
+            "wspd_range": np.asarray(self.wspd_range, dtype=np.float64),
+            "inc_step": float(np.round(np.diff(lut.coords["incidence"]).mean(), 2)),
+            "wspd_step": float(np.round(np.diff(lut.coords["wspd"]).mean(), 2)),
+        }
+        if "phi" in lut.dims:
+            attrs["phi_range"] = np.asarray(self.phi_range, dtype=np.float64)
+            attrs["phi_step"] = float(np.round(np.diff(lut.coords["phi"]).mean(), 2))
+        write_lut(file, lut, attrs)
+
     def __call__(self, inc, wspd, phi=None, broadcast=False):
         raise NotImplementedError(self.__class__)
+
+
+class LutModel(Model):
+    """Abstract base for tabulated models (netCDF, binary or pickle LUTs).
+
+    Evaluation interpolates the (possibly re-gridded) LUT: all-scalar calls
+    return a float, all-1-D calls the outer-product DimArray, as the
+    reference LutModel (models.py:318-347).
+    """
+
+    _name_prefix = "nc_lut_"
+    _priority = None
+
+    def __call__(self, inc, wspd, phi=None, units=None, **kwargs):
+        vals = [v for v in (inc, wspd, phi) if v is not None]
+        all_scalar = all(np.isscalar(v) for v in vals)
+        all_1d = all(hasattr(v, "ndim") and v.ndim == 1 for v in vals)
+        if not (all_scalar or all_1d):
+            raise NotImplementedError("Only scalar or 1D arrays are supported for LutModel")
+
+        lut = self.to_lut(units=units, **kwargs)
+        indexers = {"incidence": inc, "wspd": wspd}
+        if "phi" in lut.dims and phi is not None:
+            indexers["phi"] = phi
+        sigma0 = lut.interp({k: np.asarray(v, dtype=np.float64) for k, v in indexers.items()})
+        sigma0.name = "sigma0_gmf"
+        sigma0 = sigma0.assign_attrs(model=self.name, units=self.units)
+        if all_scalar:
+            return sigma0.item()
+        return sigma0
 
 
 def available_models(pol=None):
@@ -206,3 +257,19 @@ def get_model(name):
     if len(match) == 1:
         return match[0]
     raise KeyError(f"model {name} not found")
+
+
+def register_luts(topdir=None, topdir_cmod7=None):
+    """Register the deferred GMFs, the netCDF LUTs under ``topdir`` and
+    CMOD7 under ``topdir_cmod7`` (reference models.py:541-568)."""
+    from xsarsea_tpu_torch.models.gmf import GmfModel
+
+    GmfModel.activate_gmfs_impl()
+    if topdir is not None:
+        from xsarsea_tpu_torch.models.nc_lut import register_nc_luts
+
+        register_nc_luts(topdir)
+    if topdir_cmod7 is not None:
+        from xsarsea_tpu_torch.models.cmod7 import register_cmod7
+
+        register_cmod7(topdir_cmod7)

@@ -9,6 +9,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace xs {
 
@@ -18,6 +19,68 @@ __device__ __forceinline__ float copol_cost(float l, float u_half, float v_half,
   const float d1 = __fsub_rn(u_half, ma_half);
   const float d2 = __fsub_rn(v_half, mz_half);
   return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
+}
+
+// The first minimum of one pixel's slab sweep: its row within the slab
+// (-1 when no cost is finite and below +inf), its column, and whether any
+// cost was NaN (the reference's NaN-propagating min poisons the pixel).
+struct SlabArgmin {
+  int row;
+  int col;
+  bool poisoned;
+};
+
+// Direct-form copol argmin over an n_rows x n_phi LUT slab (K2 and K3).
+// The slab sits in shared memory; u_b/v_b point at the slab's first row of
+// the halved wind-component grids in device memory. One thread sweeps its
+// pixel in row-major (wspd-major, phi-minor) order with a strict '<': the
+// first minimum wins, numpy's rule.
+__device__ __forceinline__ SlabArgmin copol_slab_argmin(const float* slab,
+                                                        const float* __restrict__ u_b,
+                                                        const float* __restrict__ v_b,
+                                                        int n_rows, int n_phi, float s0,
+                                                        float ma_half, float mz_half,
+                                                        float inv_dsig) {
+  float best = CUDART_INF_F;
+  SlabArgmin m{-1, 0, false};
+  for (int r = 0; r < n_rows; ++r) {
+    const int base = r * n_phi;
+    for (int c = 0; c < n_phi; ++c) {
+      const float j = copol_cost(slab[base + c], __ldg(u_b + base + c), __ldg(v_b + base + c),
+                                 s0, ma_half, mz_half, inv_dsig);
+      m.poisoned |= (j != j);
+      if (j < best) {
+        best = j;
+        m.row = r;
+        m.col = c;
+      }
+    }
+  }
+  return m;
+}
+
+// Crosspol 1-D argmin over one LUT row (K2 and K4), the reference's
+// _crosspol_kernel: j = ((lut - s0) / dsig)^2 + (w/2 - wco/2)^2 * has_co, a
+// true divide, first minimum by index. Returns the winning wind speed
+// (w/2 + w/2 == w exactly), or 0 when any cost is NaN.
+__device__ __forceinline__ float crosspol_argmin(const float* row, const float* w_half, int n_cr,
+                                                 float s0_cr, float dsig_cr, float wco_half,
+                                                 float has_co) {
+  float best = CUDART_INF_F;
+  int best_k = 0;
+  bool poisoned = false;
+  for (int k = 0; k < n_cr; ++k) {
+    const float d = __fdiv_rn(__fsub_rn(row[k], s0_cr), dsig_cr);
+    const float dw = __fsub_rn(w_half[k], wco_half);
+    const float j = __fadd_rn(__fmul_rn(d, d), __fmul_rn(__fmul_rn(dw, dw), has_co));
+    poisoned |= (j != j);
+    if (j < best) {
+      best = j;
+      best_k = k;
+    }
+  }
+  const float wh = w_half[best_k];
+  return poisoned ? 0.0f : __fadd_rn(wh, wh);
 }
 
 // Dynamic shared memory above the 48 KB default needs an explicit opt-in.

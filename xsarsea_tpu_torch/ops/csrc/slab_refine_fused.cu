@@ -8,13 +8,14 @@
 // padding (vmask == 0) write zeros and stop.
 //
 // Each thread owns one pixel and sweeps the slab in row-major (wspd-major,
-// phi-minor) order with a strict '<': the first minimum wins, numpy's rule,
-// with no cross-lane bookkeeping. A NaN cost anywhere poisons the pixel to
-// (wspd 0, phi 0), as the reference's NaN-propagating min does. The winner
+// phi-minor) order with a strict '<' (xs::copol_slab_argmin, shared with K3):
+// the first minimum wins, numpy's rule, with no cross-lane bookkeeping. A NaN
+// cost anywhere poisons the pixel to (wspd 0, phi 0), as the reference's
+// NaN-propagating min does. The winner
 // decodes to wspd = w_pad[row] and phi = co_phir[col]. Then the crosspol
 // cost ((lut - s0cr) / dsig_cr)^2 + (w/2 - wco/2)^2 * has_co (a true divide,
-// as _crosspol_kernel) is minimized over the band's crosspol row, first
-// minimum, emitting the winning wspd in m/s.
+// as _crosspol_kernel; xs::crosspol_argmin, shared with K4) is minimized over
+// the band's crosspol row, first minimum, emitting the winning wspd in m/s.
 //
 // Bound on the H100: FP32 issue. Per pixel 48 x 181 = 8,688 entries x ~9
 // FP32 operations plus a compare and the NaN test, then ~800 crosspol
@@ -22,8 +23,6 @@
 // crosspol row come through the read-only cache, the same address for every
 // thread of a warp. Device-memory traffic is ~32 B/px in and 16 B/px out.
 #include "inversion_common.cuh"
-
-#include <math_constants.h>
 
 namespace {
 
@@ -55,50 +54,20 @@ __global__ void slab_refine_fused_kernel(
   __syncthreads();
 
   const float* f = feats + (static_cast<size_t>(b) * block + t) * 8;
-  const float s0 = f[0], ma_half = f[1], mz_half = f[2], inv_dsig = f[3];
-  const float* u_b = u_half + static_cast<size_t>(r0) * n_phi;
-  const float* v_b = v_half + static_cast<size_t>(r0) * n_phi;
-  float best = CUDART_INF_F;
-  int best_row = -1, best_col = 0;
-  bool poisoned = false;
-  for (int r = 0; r < n_rows; ++r) {
-    const int base = r * n_phi;
-    for (int c = 0; c < n_phi; ++c) {
-      const float j = xs::copol_cost(slab[base + c], __ldg(u_b + base + c),
-                                     __ldg(v_b + base + c), s0, ma_half, mz_half, inv_dsig);
-      poisoned |= (j != j);
-      if (j < best) {
-        best = j;
-        best_row = r;
-        best_col = c;
-      }
-    }
-  }
-  const bool hit = !poisoned && best_row >= 0;
-  const float wspd_co = hit ? w_pad[r0 + best_row] : 0.0f;
-  const float phi = poisoned ? 0.0f : co_phir[best_col];
+  const float s0 = f[0];
+  const xs::SlabArgmin m = xs::copol_slab_argmin(
+      slab, u_half + static_cast<size_t>(r0) * n_phi, v_half + static_cast<size_t>(r0) * n_phi,
+      n_rows, n_phi, s0, f[1], f[2], f[3]);
+  const bool hit = !m.poisoned && m.row >= 0;
+  const float wspd_co = hit ? w_pad[r0 + m.row] : 0.0f;
+  const float phi = m.poisoned ? 0.0f : co_phir[m.col];
 
   float wspd_cr = 0.0f;
   if (has_cr) {
-    const float s0_cr = f[4], dsig_cr = f[5];
     const float has_co = (s0 != s0) ? 0.0f : 1.0f;
     const float wco_half = __fmul_rn(hit ? __fmul_rn(wspd_co, 0.5f) : 0.0f, has_co);
-    const float* row = cr_lut + static_cast<size_t>(band) * n_cr;
-    float best_cr = CUDART_INF_F;
-    int best_k = 0;
-    bool poisoned_cr = false;
-    for (int k = 0; k < n_cr; ++k) {
-      const float d = __fdiv_rn(__fsub_rn(__ldg(row + k), s0_cr), dsig_cr);
-      const float dw = __fsub_rn(__ldg(cr_whalf + k), wco_half);
-      const float j = __fadd_rn(__fmul_rn(d, d), __fmul_rn(__fmul_rn(dw, dw), has_co));
-      poisoned_cr |= (j != j);
-      if (j < best_cr) {
-        best_cr = j;
-        best_k = k;
-      }
-    }
-    const float wh = __ldg(cr_whalf + best_k);
-    wspd_cr = poisoned_cr ? 0.0f : __fadd_rn(wh, wh);
+    wspd_cr = xs::crosspol_argmin(cr_lut + static_cast<size_t>(band) * n_cr, cr_whalf, n_cr,
+                                  f[4], f[5], wco_half, has_co);
   }
   out_b[t] = wspd_co;
   out_b[block + t] = phi;

@@ -1,4 +1,4 @@
-"""The fused inversion's two kernels, their plain versions and operands.
+"""The fused inversion's kernels, their plain versions and operands.
 
 Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
 
@@ -11,6 +11,13 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   ``SLAB_ROWS`` x all-phi LUT slab with numpy's first-minimum rule in
   (wspd-major, phi-minor) order, the decode of the winner to (wspd, phi)
   and the crosspol 1-D argmin over the band's crosspol row.
+* K3 :func:`slab_refine` replaces ``slab_refine_pallas``: K2's slab sweep
+  alone, emitting the winner's flat index into the (W, P) grid with the
+  reference's sentinels. With K4 it serves the unfused tail, taken when the
+  crosspol LUT has its own incidence axis.
+* K4 :func:`crosspol_argmin` replaces ``crosspol_argmin_pallas``: per
+  256-pixel block sharing one crosspol incidence band, K2's crosspol 1-D
+  argmin over the band's row.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use and bound with
@@ -45,6 +52,7 @@ import torch
 from xsarsea_tpu_torch.ops.bucketing import DEFAULT_BLOCK as GROUP_BLOCK
 
 __all__ = [
+    "CR_BLOCK",
     "GROUP_BLOCK",
     "KERNELS",
     "SLAB_BLOCK",
@@ -56,20 +64,25 @@ __all__ = [
     "build_decode_arrays",
     "build_direct_arrays",
     "build_kernels",
+    "crosspol_argmin",
     "group_argmin",
     "launch_counts",
     "reset_launch_counts",
+    "slab_refine",
     "slab_refine_fused",
 ]
 
 WGROUP = 16  # wspd rows per group: K1's output unit, K2's bucketing unit
 SLAB_MARGIN = 16  # refine window half-width in wspd rows around the group
 SLAB_ROWS = WGROUP + 2 * SLAB_MARGIN  # 48 rows: [16g-16, 16g+32)
-SLAB_BLOCK = 128  # pixels per K2 block (one (band, group) each)
+SLAB_BLOCK = 128  # pixels per K2/K3 block (one (band, group) each)
+CR_BLOCK = 256  # pixels per K4 block (one crosspol band each)
 _PAD_LUT = 1e19  # padded LUT rows: cost overflows to +inf, never chosen
+_NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("group_argmin.cu", "slab_refine_fused.cu")
+_SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
+            "crosspol_argmin.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -181,14 +194,40 @@ def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, 
     return out
 
 
+def _slab_argmin_plain(lut_pad, u_half, v_half, fb, band, r0):
+    """K2's and K3's slab sweep for the blocks ``band``/``r0`` (nb,) with
+    features ``fb`` (nb, block, >=4): per pixel the first strict minimum's
+    flat index within the slab, whether it is a finite cost, and whether
+    any cost is NaN (the reference's NaN-propagating min poisons it)."""
+    rows = r0[:, None] + torch.arange(SLAB_ROWS, device=fb.device)  # (nb, SLAB_ROWS)
+    fe = fb[:, :, :, None, None]
+    j = _cost(lut_pad[band[:, None], rows][:, None], u_half[rows][:, None],
+              v_half[rows][:, None], fe[:, :, 0], fe[:, :, 1], fe[:, :, 2], fe[:, :, 3])
+    j = j.reshape(j.shape[0], fb.shape[1], -1)
+    poisoned = torch.isnan(j).any(-1)
+    jc = torch.where(torch.isnan(j), float("inf"), j)
+    flat = torch.argmin(jc, -1)
+    hit = (torch.gather(jc, -1, flat[..., None])[..., 0] < float("inf")) & ~poisoned
+    return flat, hit, poisoned
+
+
+def _crosspol_plain(cr_row, w_half, s0_cr, dsig_cr, wco_half, has_co):
+    """K2's and K4's crosspol argmin: rows ``cr_row`` (..., Wc) broadcast
+    against per-pixel features (..., 1); the winning speed, 0 if any cost
+    is NaN."""
+    d = (cr_row - s0_cr) / dsig_cr
+    j = _sq(d) + _sq(w_half - wco_half) * has_co
+    poisoned = torch.isnan(j).any(-1)
+    best = torch.argmin(torch.where(torch.isnan(j), float("inf"), j), -1)
+    return torch.where(poisoned, 0.0, w_half[best] + w_half[best])
+
+
 def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
                              sband, srow0, vmask, has_cr, block, chunk_blocks=16):
     n_blocks = sband.shape[0]
     n_phi = lut_pad.shape[2]
-    dev = feats.device
-    inf = float("inf")
     f = feats.reshape(n_blocks, block, 8)
-    out = torch.zeros((n_blocks, 4, block), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
     for b0 in range(0, n_blocks, chunk_blocks):
         b1 = min(b0 + chunk_blocks, n_blocks)
         sel = torch.nonzero(vmask[b0:b1] != 0)[:, 0] + b0  # all-padding blocks stay 0
@@ -196,33 +235,56 @@ def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr
             continue
         band = sband[sel].to(torch.int64)
         r0 = srow0[sel].to(torch.int64)
-        rows = r0[:, None] + torch.arange(SLAB_ROWS, device=dev)  # (nb, SLAB_ROWS)
         fb = f[sel]  # (nb, block, 8)
-        fe = fb[:, :, :, None, None]
-        j = _cost(lut_pad[band[:, None], rows][:, None], u_half[rows][:, None],
-                  v_half[rows][:, None], fe[:, :, 0], fe[:, :, 1], fe[:, :, 2], fe[:, :, 3])
-        j = j.reshape(j.shape[0], block, SLAB_ROWS * n_phi)
-        # a NaN anywhere poisons the pixel (the reference's NaN-propagating
-        # min); otherwise the first strict minimum in row-major order
-        poisoned = torch.isnan(j).any(-1)
-        jc = torch.where(torch.isnan(j), inf, j)
-        flat = torch.argmin(jc, -1)
-        hit = (torch.gather(jc, -1, flat[..., None])[..., 0] < inf) & ~poisoned
+        flat, hit, poisoned = _slab_argmin_plain(lut_pad, u_half, v_half, fb, band, r0)
         row = r0[:, None] + torch.div(flat, n_phi, rounding_mode="floor")
         col = torch.where(poisoned, 0, flat % n_phi)
         wspd_co = torch.where(hit, w_pad[row], 0.0)
-        phi = torch.where(poisoned, 0.0, co_phir[col])
         out[sel, 0] = wspd_co
-        out[sel, 1] = phi
+        out[sel, 1] = torch.where(poisoned, 0.0, co_phir[col])
         if has_cr:
             s0 = fb[:, :, 0]
             has_co = torch.where(torch.isnan(s0), 0.0, 1.0)[..., None]
             wco2 = torch.where(hit, w_pad[row] * 0.5, 0.0)[..., None] * has_co
-            d = (cr_lut[band][:, None] - fb[:, :, 4, None]) / fb[:, :, 5, None]
-            jcr = _sq(d) + _sq(cr_whalf - wco2) * has_co
-            poisoned_cr = torch.isnan(jcr).any(-1)
-            best = torch.argmin(torch.where(torch.isnan(jcr), inf, jcr), -1)
-            out[sel, 2] = torch.where(poisoned_cr, 0.0, cr_whalf[best] + cr_whalf[best])
+            out[sel, 2] = _crosspol_plain(cr_lut[band][:, None], cr_whalf, fb[:, :, 4, None],
+                                          fb[:, :, 5, None], wco2, has_co)
+    return out
+
+
+def _no_hit_flat(n_phi):
+    """K3's index for a pixel with no finite cost: the reference's sweep
+    init row ``(2**30 // n_phi) & ~1`` at phi lane 0."""
+    return ((_NAN_IDX // n_phi) & ~1) * n_phi
+
+
+def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
+                       chunk_blocks=16):
+    n_blocks = sband.shape[0]
+    n_phi = lut_pad.shape[2]
+    f = feats.reshape(n_blocks, block, 4)
+    out = torch.zeros((n_blocks, block), dtype=torch.int32, device=feats.device)
+    for b0 in range(0, n_blocks, chunk_blocks):
+        b1 = min(b0 + chunk_blocks, n_blocks)
+        sel = torch.nonzero(vmask[b0:b1] != 0)[:, 0] + b0  # all-padding blocks stay 0
+        if sel.numel() == 0:
+            continue
+        r0 = srow0[sel].to(torch.int64)
+        flat, hit, poisoned = _slab_argmin_plain(lut_pad, u_half, v_half, f[sel],
+                                                 sband[sel].to(torch.int64), r0)
+        idx = torch.where(hit, r0[:, None] * n_phi + flat, _no_hit_flat(n_phi))
+        out[sel] = torch.where(poisoned, _NAN_IDX, idx).to(torch.int32)
+    return out
+
+
+def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64):
+    n_blocks = band_of_block.shape[0]
+    f = feats.reshape(n_blocks, block, 4, 1)
+    out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
+    for b0 in range(0, n_blocks, chunk_blocks):
+        b1 = min(b0 + chunk_blocks, n_blocks)
+        fb = f[b0:b1]
+        out[b0:b1] = _crosspol_plain(cr_lut[band_of_block[b0:b1].to(torch.int64)][:, None],
+                                     w_half, fb[:, :, 0], fb[:, :, 1], fb[:, :, 2], fb[:, :, 3])
     return out
 
 
@@ -277,6 +339,10 @@ def _load():
             lib.xs_group_argmin.restype = i
             lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 7 + [p]
             lib.xs_slab_refine_fused.restype = i
+            lib.xs_slab_refine.argtypes = [p] * 8 + [i] * 6 + [p]
+            lib.xs_slab_refine.restype = i
+            lib.xs_crosspol_argmin.argtypes = [p] * 5 + [i] * 3 + [p]
+            lib.xs_crosspol_argmin.restype = i
             lib.xs_error_string.argtypes = [i]
             lib.xs_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -410,7 +476,87 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     return out
 
 
-KERNELS = {"group_argmin": group_argmin, "slab_refine_fused": slab_refine_fused}
+def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK):
+    """K3: slab refine per (band, group) block, emitting the flat index.
+
+    lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
+    :func:`build_direct_arrays`; feats (n_blocks*block, 4) f32 rows
+    (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding; sband, srow0, vmask
+    (n_blocks,) as for :func:`slab_refine_fused`. Returns (n_blocks, block)
+    i32: the winner's row-major index ``row * P + col`` into the true
+    (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
+    ``((2**30 // P) & ~1) * P`` for one with no finite cost (the reference's
+    sentinels: clip before use as an index); 0 in all-padding blocks.
+    """
+    n_blocks = sband.shape[0]
+    if feats.device.type == "cpu":
+        return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block)
+    if feats.device.type != "cuda":
+        raise ValueError(f"slab_refine: unsupported device {feats.device}")
+    n_inc, wp_rows, n_phi = lut_pad.shape
+    i32 = [x.to(torch.int32) for x in (sband, srow0, vmask)]
+    _cuda_args(feats.device, {
+        "lut_pad": (lut_pad, torch.float32, None),
+        "u_half": (u_half, torch.float32, (wp_rows, n_phi)),
+        "v_half": (v_half, torch.float32, (wp_rows, n_phi)),
+        "feats": (feats, torch.float32, (n_blocks * block, 4)),
+        "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
+        "vmask": (i32[2], torch.int32, None)})
+    if feats.data_ptr() % 16 or not 0 < block <= 1024:
+        raise ValueError("slab_refine: feats must be 16-byte aligned, block in (0, 1024]")
+    _in_range(i32[0], 0, n_inc, "sband")
+    _in_range(i32[1], 0, wp_rows - SLAB_ROWS + 1, "srow0")
+    out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
+    lib = _load()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_slab_refine(
+            lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), feats.data_ptr(),
+            i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
+            n_blocks, block, wp_rows, n_phi, SLAB_ROWS, _no_hit_flat(n_phi), stream)
+    _check(lib, rc, "slab_refine")
+    _launches["slab_refine"] += 1
+    return out
+
+
+def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
+    """K4: crosspol wind-speed argmin per block sharing one crosspol band.
+
+    cr_lut (I, Wc), w_half (Wc,) from :func:`build_crosspol_arrays`; feats
+    (n_blocks*block, 4) f32 rows (s0_cr_db, dsig_cr, wco/2, has_co) with
+    wco/2 = 0 where has_co = 0, NaN rows for padding; band_of_block
+    (n_blocks,) crosspol band per block. Returns (n_blocks, block) f32: the
+    first-minimum wind speed in m/s, 0 where any cost is NaN.
+    """
+    n_blocks = band_of_block.shape[0]
+    if feats.device.type == "cpu":
+        return _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block)
+    if feats.device.type != "cuda":
+        raise ValueError(f"crosspol_argmin: unsupported device {feats.device}")
+    n_inc, n_cr = cr_lut.shape
+    band = band_of_block.to(torch.int32)
+    _cuda_args(feats.device, {
+        "cr_lut": (cr_lut, torch.float32, None),
+        "w_half": (w_half, torch.float32, (n_cr,)),
+        "feats": (feats, torch.float32, (n_blocks * block, 4)),
+        "band_of_block": (band, torch.int32, None)})
+    if feats.data_ptr() % 16 or not 0 < block <= 1024:
+        raise ValueError("crosspol_argmin: feats must be 16-byte aligned, block in (0, 1024]")
+    _in_range(band, 0, n_inc, "band_of_block")
+    out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
+    lib = _load()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_crosspol_argmin(cr_lut.data_ptr(), w_half.data_ptr(), feats.data_ptr(),
+                                    band.data_ptr(), out.data_ptr(), n_blocks, block, n_cr,
+                                    stream)
+    _check(lib, rc, "crosspol_argmin")
+    _launches["crosspol_argmin"] += 1
+    return out
+
+
+KERNELS = {"group_argmin": group_argmin, "slab_refine_fused": slab_refine_fused,
+           "slab_refine": slab_refine, "crosspol_argmin": crosspol_argmin}
 _launches = dict.fromkeys(KERNELS, 0)
 
 

@@ -1,7 +1,7 @@
-"""windspeed: wind retrieval from sigma0 and GMF models.
+"""windspeed: wind retrieval from sigma0 and GMF/LUT models.
 
-The ported part of ``xsarsea_tpu.windspeed``: models, tables and the
-inversion. dsig/NESZ and the LUT-file loaders are not ported yet.
+The ported part of ``xsarsea_tpu.windspeed``: models (analytic GMFs and the
+LUT-file loaders), tables and the inversion. dsig/NESZ is not ported yet.
 """
 
 __all__ = [
@@ -15,9 +15,23 @@ __all__ = [
     "invert_from_model",
     "invert_pixels",
     "prepare_tables",
+    "register_cmod7",
+    "register_luts",
+    "register_nc_luts",
+    "register_pickle_luts",
 ]
 
-from xsarsea_tpu_torch.models import GmfModel, Model, available_models, get_model, gmfs_impl
+from xsarsea_tpu_torch.models import (
+    GmfModel,
+    Model,
+    available_models,
+    get_model,
+    gmfs_impl,
+    register_cmod7,
+    register_luts,
+    register_nc_luts,
+    register_pickle_luts,
+)
 from xsarsea_tpu_torch.models import gmf as gmfs  # noqa: F401
 from xsarsea_tpu_torch.windspeed.inversion import (
     InversionTables,

@@ -19,18 +19,21 @@ Modes:
   numpy's first-minimum rule (a NaN cost wins, as ``np.argmin``).
 * ``"fused"`` — pixels bucketed by incidence band, a coarse group argmin
   (kernel K1), a re-bucketing by (band, wspd group), and a fused slab
-  refine + decode + crosspol argmin (kernel K2), in float32. On a CUDA
-  device the kernels are the hand-written ones of
-  :mod:`xsarsea_tpu_torch.ops.inversion_kernels`; on the CPU their plain
-  PyTorch versions run.
+  refine + decode + crosspol argmin (kernel K2), in float32. When the
+  crosspol LUT has its own incidence axis (LUTs from different sources),
+  the tail is unfused instead: a slab refine emitting the winner's index
+  (K3), its decode in pixel order, and a crosspol argmin re-bucketed by the
+  crosspol axis (K4). On a CUDA device the kernels are the hand-written
+  ones of :mod:`xsarsea_tpu_torch.ops.inversion_kernels`; on the CPU their
+  plain PyTorch versions run.
 * ``"auto"`` — ``"fused"`` on a CUDA device when the tables have a copol
   LUT, ``"exact"`` otherwise. The fused path can differ from ``"exact"``
   on near-tie pixels (its cost multiplies by ``1/dsig`` where ``"exact"``
   divides): callers that need run-to-run identity with ``"exact"`` pass
   ``mode="exact"``.
 
-Not ported yet: the fused path for a crosspol LUT on a different incidence
-axis (kernels K3/K4), the xarray wrapper, and overlapped piece streaming.
+Not ported yet: the ``pallas_exact`` mode (full-grid first pass), the xarray
+wrapper, and overlapped piece streaming.
 """
 
 from __future__ import annotations
@@ -350,16 +353,13 @@ def _postprocess_vectorized(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, ws
 
 
 def _make_fused_invert_fn(tables, device):
-    """Fused inversion: bucketing, K1, re-bucketing, K2, scatter back to
-    pixel order, vectorized postprocess (reference
-    ``_make_pallas_invert_fn``, inversion.py:659-1015)."""
+    """Fused inversion: bucketing, K1, re-bucketing, then K2 and a scatter
+    back to pixel order, or (crosspol LUT on its own incidence axis) K3, a
+    decode in pixel order and K4 re-bucketed by the crosspol axis; then the
+    vectorized postprocess (reference ``_make_pallas_invert_fn``,
+    inversion.py:659-1015)."""
     if not tables.has_co:
         raise ValueError("the fused inversion needs a copol LUT; use mode='exact'")
-    if tables.has_cr and not np.array_equal(np.asarray(tables.co_inc, np.float64),
-                                            np.asarray(tables.cr_inc, np.float64)):
-        raise NotImplementedError(
-            "fused inversion with a crosspol LUT on another incidence axis needs kernels "
-            "K3/K4, not ported yet (ROADMAP.md, TPU kernels to port); use mode='exact'")
     dev = torch.device(device)
     f32 = torch.float32
     co_wspd = np.asarray(tables.co_wspd, np.float64)
@@ -374,6 +374,7 @@ def _make_fused_invert_fn(tables, device):
         stride_p=max(1, round(_COARSE_DPHI / step_p)))
     lut_pad, u_pad, v_pad = K.build_direct_arrays(lut, u, v)
     n_inc, wp_rows, n_phi = lut_pad.shape
+    n_wspd = co_wspd.shape[0]
     w_pad = K.build_decode_arrays(tables.co_wspd, wp_rows)
 
     def to_dev(a):
@@ -383,9 +384,15 @@ def _make_fused_invert_fn(tables, device):
     direct = tuple(to_dev(a) for a in (lut_pad, u_pad, v_pad, w_pad))
     co_phir = to_dev(np.asarray(tables.co_phir, np.float32))
     has_cr = tables.has_cr
+    # K2 fuses the crosspol argmin into the slab refine when both LUTs share
+    # the incidence axis (its blocks are single-band); otherwise the tail is
+    # unfused (K3, decode, K4 over crosspol-band buckets)
+    fused_tail = not has_cr or np.array_equal(np.asarray(tables.co_inc, np.float64),
+                                              np.asarray(tables.cr_inc, np.float64))
     if has_cr:
         cr_ops = tuple(to_dev(a) for a in K.build_crosspol_arrays(tables.cr_lut,
                                                                   tables.cr_wspd))
+        cr_grid = to_dev(np.asarray(tables.cr_inc, np.float64).astype(np.float32))
     else:  # never read by K2 with has_cr=False
         cr_ops = (torch.zeros((1, 1), dtype=f32, device=dev),
                   torch.zeros((1,), dtype=f32, device=dev))
@@ -397,6 +404,7 @@ def _make_fused_invert_fn(tables, device):
     inc_grid = to_dev(np.asarray(tables.co_inc, np.float64).astype(np.float32))
     phi_180 = tables.phi_180
     block = K.GROUP_BLOCK
+    nan = float("nan")
 
     def run(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, dsig_co):
         n = inc.shape[0]
@@ -407,41 +415,70 @@ def _make_fused_invert_fn(tables, device):
                                                  block)
         valid = perm >= 0
         mz = torch.abs(anc_im) if phi_180 else anc_im
-        zero = torch.zeros(n, dtype=f32, device=inc.device)
-        pix = torch.stack([
-            s0_co_db.to(f32), anc_re.to(f32) * 0.5, mz.to(f32) * 0.5,
-            (1.0 / dsig_co).to(f32).expand(n),
-            s0_cr_db.to(f32) if has_cr else zero, dsig_cr.to(f32) if has_cr else zero,
-            zero, zero], dim=1)
+        cols = [s0_co_db.to(f32), anc_re.to(f32) * 0.5, mz.to(f32) * 0.5,
+                (1.0 / dsig_co).to(f32).expand(n)]
+        if fused_tail:  # K2's crosspol columns
+            zero = torch.zeros(n, dtype=f32, device=inc.device)
+            cols += [s0_cr_db.to(f32) if has_cr else zero, dsig_cr.to(f32) if has_cr else zero,
+                     zero, zero]
+        pix = torch.stack(cols, dim=1)
 
         # stage 1: coarse group argmin per incidence-band block (K1)
-        feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], float("nan"))
+        feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
         gstar = K.group_argmin(*coarse, feats1, band_of_block, n_wgroups,
                                block=block).reshape(-1)
 
-        # stage 2: re-bucket by (band, group); slab refine + decode + crosspol (K2)
+        # stage 2: re-bucket by (band, group) for the slab refine
         perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
                                              n_wgroups=n_wgroups, block=block,
                                              slab_block=K.SLAB_BLOCK)
         valid2 = perm2 >= 0
+        dst = perm2[valid2]  # every pixel id sits in exactly one valid slot
         sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
         srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - K.SLAB_MARGIN, 0,
                             wp_rows - K.SLAB_ROWS)
         vmask = valid2.reshape(-1, K.SLAB_BLOCK).any(dim=1)
-        feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], float("nan"))
-        vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
-                                   has_cr=has_cr, block=K.SLAB_BLOCK)
+        feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], nan)
 
-        # back to pixel order: every pixel id sits in exactly one valid slot
-        dst = perm2[valid2]
-        slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
-        res = torch.empty((3, n), dtype=f32, device=inc.device)
-        res[:, dst] = slots[:3]
-        wspd_co_raw, phir_sol = res[0], res[1]
+        if fused_tail:
+            # slab refine + decode + crosspol (K2), then back to pixel order
+            vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
+                                       has_cr=has_cr, block=K.SLAB_BLOCK)
+            slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
+            res = torch.empty((3, n), dtype=f32, device=inc.device)
+            res[:, dst] = slots[:3]
+            wspd_co_raw, phir_sol, wspd_dual = res[0], res[1], res[2] if has_cr else None
+        else:
+            # slab refine emitting the winner's index (K3), decoded in pixel
+            # order; the reference clips its sentinels to the last grid cell
+            # (inversion.py:940-946)
+            flat_r = K.slab_refine(*direct[:3], feats2, sband, srow0, vmask,
+                                   block=K.SLAB_BLOCK)
+            flat = torch.zeros(n, dtype=torch.int64, device=inc.device)
+            flat[dst] = flat_r.reshape(-1)[valid2].to(torch.int64)
+            flat = flat.clamp(0, n_wspd * n_phi - 1)
+            wspd_co_raw = direct[3][torch.div(flat, n_phi, rounding_mode="floor")]
+            phir_sol = co_phir[flat % n_phi]
+
+            # stage 3: re-bucket by crosspol incidence band, crosspol argmin
+            # (K4) with the copol speed as prior where copol solved
+            # (inversion.py:949-981; its same-axis branch cannot occur here,
+            # the tail runs only when the axes differ)
+            wspd_co_m = torch.where(torch.isnan(s0_co_db), nan, wspd_co_raw)
+            has_co = (~torch.isnan(wspd_co_m)).to(f32)
+            perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc),
+                                          cr_grid.shape[0], K.CR_BLOCK)
+            valid3 = perm3 >= 0
+            pix3 = torch.stack([s0_cr_db.to(f32), dsig_cr.to(f32),
+                                torch.where(has_co > 0, wspd_co_m, 0.0) * 0.5, has_co], dim=1)
+            feats3 = torch.where(valid3[:, None], pix3[perm3.clamp(min=0)], nan)
+            wd = K.crosspol_argmin(*cr_ops, feats3, band3, block=K.CR_BLOCK)
+            wspd_dual = torch.zeros(n, dtype=f32, device=inc.device)
+            wspd_dual[perm3[valid3]] = wd.reshape(-1)[valid3]
         return _postprocess_vectorized(
             inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, wspd_co_raw,
-            torch.cos(phir_sol), torch.sin(phir_sol), phir_sol,
-            res[2] if has_cr else None, phi_180=phi_180, has_cr=has_cr)
+            torch.cos(phir_sol), torch.sin(phir_sol), phir_sol, wspd_dual,
+            phi_180=phi_180, has_cr=has_cr)
 
     return run
 
