@@ -25,10 +25,25 @@ it finishes; any failure exits non-zero:
    sigma0 interpolated from the crosspol LUT) must launch K1, K3 and K4 and
    not K2; then the device-resident rate, K3 and K4 against their plain
    versions on a 64 Kpx subsample and on one 2**22-pixel piece's arguments,
-   with their times, and fused against exact on the first 2**16 pixels.
+   with their times, and fused against exact on the first 2**16 pixels;
+8. the experiment drivers of ``xsarsea_tpu_torch/scripts``: the slab
+   sweep's three cost forms (K5) on a 2**23-pixel scene bucketed by the
+   port's stage 1, with their times and argmin flips against the direct
+   form, and the coarse pass's nine expanded-form variants (K6) at 2**23
+   pixels; each form and variant must have been launched by its driver and
+   be bit-equal to its plain version on the driver's arguments, and the
+   direct form bit-equal to K3.
 
-The second-to-last line is a JSON object describing each kernel; the last
-is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The second-to-last line is a JSON object
+describing each kernel (each K5 form and K6 variant apart): its time and
+its plain version's on the path's arguments, its launches, and its bound,
+the least time the card could take for the same work (the larger of the
+bytes each input and output must move over 3.35 TB/s and the operations,
+counted from the kernel's code per entry for the path's real pixels, over
+67 TFLOP/s FP32, or 989 TFLOP/s for K6's bf16 products; NVIDIA's H100 SXM
+data sheet at 700 W). No single PyTorch call computes any of these
+functions (each is an argmin over a cost), so ``library_ms`` is null. The
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,10 +74,58 @@ KERNELS = {  # name: (source, TPU kernel it replaces, position of the feats argu
                         "xsarsea_tpu/ops/pallas_inversion.py:667", 2),
 }
 UNFUSED_MODELS = ("gmf_cmod7", "sarwing_lut__fix_cr_2_1")  # phase 7: own incidence axes
+EXPERIMENTS = {  # phase 8: kernel family -> (source, TPU kernel it replaces)
+    "slab_forms": ("xsarsea_tpu_torch/ops/csrc/slab_forms.cu", "scripts/bench_slab_forms.py:141"),
+    "group_argmin_variant": ("xsarsea_tpu_torch/ops/csrc/group_argmin_variants.cu",
+                             "scripts/bench_kernel_variants.py:74"),
+}
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12  # FLOP/s, tensor cores
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+# FP32 operations per cost entry, counted from the kernels' code: the cost
+# (inversion_common.cuh) plus the compare that keeps the minimum
+OPS_DIRECT = 10  # 3 sub, 4 mul, 2 add, compare (K1, K2, K3, K5 direct)
+OPS_FORM = {"direct": OPS_DIRECT, "prescaled": 9, "expanded_uv": 8}
+OPS_CROSSPOL = 8  # 2 sub, div, 3 mul, add, compare (K2, K4)
+OPS_DOT4 = 7  # K6: 4 mul, 3 add per entry, then one min or compare
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def live_pixels(torch, feats, axis=-1):
+    """Pixels of a feats tensor that are not padding (not all NaN)."""
+    return int((~torch.isnan(feats).all(axis)).sum())
+
+
+def nbytes(torch, *tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+
+
+def bound(fp32_ops, n_bytes, bf16_ops=0):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops = max(fp32_ops / PEAK_FP32, bf16_ops / PEAK_BF16)
+    t_bytes = n_bytes / PEAK_BYTES
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
+
+
+def kernel_bound(torch, K, name, args, kwargs, out):
+    """The bound of inversion kernel ``name`` on the arguments it was given."""
+    if name == "group_argmin":
+        fp32 = live_pixels(torch, args[4]) * args[1].numel() * OPS_DIRECT
+    elif name == "slab_refine_fused":
+        per_px = K.SLAB_ROWS * args[0].shape[2] * OPS_DIRECT
+        if kwargs.get("has_cr", True):
+            per_px += args[6].numel() * OPS_CROSSPOL
+        fp32 = live_pixels(torch, args[7]) * per_px
+    elif name == "slab_refine":
+        fp32 = live_pixels(torch, args[3]) * K.SLAB_ROWS * args[0].shape[2] * OPS_DIRECT
+    else:  # crosspol_argmin
+        fp32 = live_pixels(torch, args[2]) * args[1].numel() * OPS_CROSSPOL
+    return bound(fp32, nbytes(torch, *args, out))
 
 
 @contextlib.contextmanager
@@ -108,23 +171,15 @@ def feats_of(name, args):
 
 
 def time_against_plain(torch, K, name, args, kwargs, entry):
-    """CUDA-event ms of the kernel (5 calls) and of its plain version (1)."""
-    entry["ms"] = cuda_ms(torch, lambda: getattr(K, name)(*args, **kwargs), 5)
+    """CUDA-event ms of the kernel (5 calls after a warm-up) and of its
+    plain version (1), and the kernel's bound on these arguments."""
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    entry["ms"] = cuda_ms(lambda: getattr(K, name)(*args, **kwargs), 5)
     entry["plain_ms"] = cuda_ms(
-        torch, lambda: plain_version(K, name)(*args, **kwargs, chunk_blocks=128), 1)
-
-
-def cuda_ms(torch, fn, reps):
-    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one warm-up."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        lambda: plain_version(K, name)(*args, **kwargs, chunk_blocks=128), 1)
+    out = getattr(K, name)(*args, **kwargs)
+    entry["bound_ms"], entry["bound_by"] = kernel_bound(torch, K, name, args, kwargs, out)
 
 
 def make_scene(torch, get_model, n, seed=0):
@@ -343,9 +398,98 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
         time_against_plain(torch, K, name, args, kwargs, timed)
         log(f"phase 7 {name}: bit-equal to its plain version on {size} outputs at the unfused "
             f"tail's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
-            f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms per call")
+            f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms per call, bound "
+            f"{timed['bound_ms']:.3f} ms ({timed['bound_by']})")
 
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 7")
+
+
+def timed_once(torch, fn):
+    """(CUDA-event ms, result) of one call of ``fn``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def experiment_entry(torch, family, name, got, ref, ms, plain_ms, launches, bound_ms_by,
+                     phase):
+    """One K5 form's or K6 variant's line: exit unless it was launched by
+    its driver and is bit-equal to its plain version."""
+    if launches == 0:
+        raise SystemExit(f"{phase}: {name} was not launched by its driver")
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        bad = int((got != ref).sum()) if got.shape == ref.shape else "all"
+        raise SystemExit(f"{phase}: {name} differs from its plain version on {bad} of "
+                         f"{ref.numel()} outputs")
+    source, replaces = EXPERIMENTS[family]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": float((got.double() - ref.double()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1], "library_ms": None}
+
+
+def phase8(torch, K, report):
+    """The experiment drivers: K5's cost forms and K6's variants at 2**23 px."""
+    from xsarsea_tpu_torch.ops import experiment_kernels as E
+    from xsarsea_tpu_torch.scripts import bench_kernel_variants, bench_slab_forms
+
+    # K5: the driver's run is the path, with launch counts
+    E.reset_launch_counts()
+    res = bench_slab_forms.main()
+    torch.cuda.synchronize()
+    launches = E.launch_counts()
+    for form, r in res["forms"].items():
+        args = r["args"]
+        plain_ms, ref = timed_once(torch, lambda: E._slab_forms_plain(*args, chunk_blocks=128))
+        name = f"slab_forms:{form}"
+        px = live_pixels(torch, args[5])
+        cost_bound = bound(px * K.SLAB_ROWS * args[1].shape[2] * OPS_FORM[form],
+                           nbytes(torch, *args[1:], r["out"]))
+        report[name] = experiment_entry(torch, "slab_forms", name, r["out"], ref, r["ms"],
+                                        plain_ms, launches.get(f"slab_forms/{form}", 0),
+                                        cost_bound, "phase 8")
+        line = (f"phase 8 {name}: bit-equal to its plain version on {ref.numel()} outputs "
+                f"({px} px); kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{cost_bound[0]:.4g} ms ({cost_bound[1]})")
+        if form == "direct":
+            k3 = K.slab_refine(*args[1:4], *args[5:])
+            torch.cuda.synchronize()
+            if not torch.equal(k3, r["out"]):
+                raise SystemExit("phase 8: the direct form differs from slab_refine (K3)")
+            line += "; bit-equal to slab_refine (K3)"
+        log(line)
+    log(f"phase 8 slab-form flips: {json.dumps(res['flips'])}")
+
+    # K6: the nine variants at 2**23 px
+    E.reset_launch_counts()
+    results = bench_kernel_variants.main()
+    torch.cuda.synchronize()
+    launches = E.launch_counts()
+    for r in results:
+        _, feats, band = r["args"]
+        kw = r["kwargs"]
+        plain_ms, ref = timed_once(torch, lambda: E._group_argmin_variant_plain(
+            *r["args"], kw["block"], kw["reduction"], kw["precision"], chunk_px=16384))
+        name = E.variant_name(**kw)
+        px = live_pixels(torch, feats, 1)
+        reads = 8 if kw["reduction"] == "none" else E.G4_TILE  # entries read per tile
+        entries = E.G4_TILES * reads
+        product = px * entries * OPS_DOT4
+        g4_bytes = int(torch.unique(band).numel()) * E.G4_TILES * 4 * reads * 4
+        variant_bound = bound(px * entries + (product if kw["precision"] == "highest" else 0),
+                              g4_bytes + nbytes(torch, feats, band, r["out"]),
+                              product if kw["precision"] == "default" else 0)
+        report[f"group_argmin_variant:{name}"] = experiment_entry(
+            torch, "group_argmin_variant", f"group_argmin_variant:{name}", r["out"], ref,
+            r["ms"], plain_ms, launches.get(f"group_argmin_variant/{name}", 0), variant_bound,
+            "phase 8")
+        log(f"phase 8 {r['label']}: bit-equal to its plain version on {ref.numel()} px; "
+            f"kernel {r['ms']:.3f} ms ({r['mpx_s']:.1f} Mpx/s), plain {plain_ms:.3f} ms, "
+            f"bound {variant_bound[0]:.4g} ms ({variant_bound[1]})")
 
 
 def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
@@ -363,8 +507,14 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
     torch.backends.cudnn.allow_tf32 = False
     models = ("gmf_cmod5n", "gmf_s1_v2")
     report = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "max_abs_err": 0.0}
+                     "max_abs_err": 0.0, "library_ms": None}
               for name, (src, rep, _) in KERNELS.items()}
+    clock = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        log(f"{phase} done in {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # phase 1: the card
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -372,6 +522,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
                           check=True).stdout.strip().splitlines()[0]
     log("phase 1 card (nvidia-smi name, power.limit):")
     log(card)
+    done("phase 1")
 
     # phase 2: kernel build
     t0 = time.perf_counter()
@@ -380,6 +531,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
     for line in K.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    done("phase 2")
 
     t0 = time.perf_counter()
     sc = make_scene(torch, get_model, n)
@@ -391,6 +543,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
 
     # phase 3: kernels against their plain versions, bit for bit
     hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 3")
+    done("phase 3 (with the scene and tables)")
 
     # phase 4: the main path, with launch counts
     K.reset_launch_counts()
@@ -420,6 +573,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
         f"(merged dual output: {rms_merged:.6f})")
     if not 0.341 <= rms <= 0.351:
         raise SystemExit(f"phase 4: rms_vs_truth_noisy_m_s {rms} outside 0.346 +- 0.005")
+    done("phase 4")
 
     # phase 5: device-resident rate, and each kernel beside its plain version
     times, calls = device_rate(torch, K, tables, dev_inputs(0, n), reps)
@@ -432,14 +586,22 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
         time_against_plain(torch, K, name, args, kwargs, report[name])
         log(f"phase 5 {name}: bit-equal to its plain version on {size} outputs at the main "
             f"path's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
-            f"{report[name]['ms']:.3f} ms, plain {report[name]['plain_ms']:.3f} ms per call")
+            f"{report[name]['ms']:.3f} ms, plain {report[name]['plain_ms']:.3f} ms per call, "
+            f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})")
+    done("phase 5")
 
     # phase 6: fused against exact on the card
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 6")
+    done("phase 6")
 
     # phase 7: the unfused tail, on LUT-file models with their own incidence axes
     with tempfile.TemporaryDirectory() as tmp:
         phase7(torch, K, sc, n, n_sub, n_rms, reps, report, Path(tmp))
+    done("phase 7")
+
+    # phase 8: the experiment drivers (K5 cost forms, K6 coarse-pass variants)
+    phase8(torch, K, report)
+    done("phase 8")
 
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from xsarsea_tpu_torch.models import get_model
+from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_pixels, \
     prepare_tables
@@ -130,6 +131,69 @@ def test_k3_k4_bit_equal_to_plain_versions(cuda):
     assert (got4.reshape(-1)[[5, 6]] == 0).all() and (got4.reshape(-1)[:5] > 0).all()
     assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "slab_refine": 1,
                                  "crosspol_argmin": 1}
+
+
+def test_k5_forms_bit_equal_to_plain_versions(cuda):
+    """K5 (slab_forms) in each cost form against its plain version, with
+    K3's sentinels (a NaN LUT entry, 1/dsig = inf, padding slots and rows,
+    a skipped block); its direct form against K3 itself."""
+    rng = np.random.default_rng(5)
+    lut, _, _, u, v, _, _ = _operands(rng)
+    dev = lambda a: None if a is None else torch.as_tensor(a, device=cuda)  # noqa: E731
+    E.reset_launch_counts()
+    wp = K.build_direct_arrays(lut, u, v)[0].shape[1]
+    nb = 13
+    sband = rng.integers(0, 6, nb).astype(np.int32)
+    sband[0] = 1
+    srow0 = np.clip(rng.integers(0, 9, nb) * 16 - 16, 0, wp - 48).astype(np.int32)
+    srow0[0], srow0[1] = 16, wp - 48
+    n = nb * 128
+    s0 = rng.uniform(-30, -5, n).astype(np.float32)
+    ma2, mz2 = (rng.uniform(-6, 6, n).astype(np.float32), rng.uniform(0, 6, n).astype(np.float32))
+    feats = {"direct": np.stack([s0, ma2, mz2, np.full(n, 10.0, np.float32)], 1),
+             "prescaled": np.stack([s0 * np.float32(10.0), ma2, mz2, np.ones(n, np.float32)], 1)}
+    feats["expanded_uv"] = feats["prescaled"]
+    for f in feats.values():
+        f[3] = np.nan
+    feats["direct"][300, 3] = np.inf
+    vmask = np.ones(nb, np.int32)
+    vmask[7] = 0
+    rest = tuple(dev(a) for a in (sband, srow0, vmask))
+    for form in E.FORMS:
+        args = (form, *(dev(a) for a in E.build_form_arrays(form, lut, u, v, 0.1)),
+                dev(feats[form]), *rest)
+        got = E.slab_forms(*args)
+        ref = E._slab_forms_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), form
+        assert (got[0] == 2 ** 30).all() and got.reshape(-1)[3] == 2 ** 30
+        if form == "direct":
+            assert torch.equal(got, K.slab_refine(*args[1:4], *args[5:]))
+            assert got.reshape(-1)[300] == ((2 ** 30 // 181) & ~1) * 181
+    assert E.launch_counts() == {f"slab_forms/{form}": 1 for form in E.FORMS}
+
+
+def test_k6_variants_bit_equal_to_plain_versions(cuda):
+    """K6 (group_argmin_variant) in every (block, reduction, precision)
+    against its plain version, with a NaN pixel."""
+    rng = np.random.default_rng(6)
+    g4 = torch.as_tensor(rng.normal(size=(7, 4, 4, 2048)).astype(np.float32), device=cuda)
+    E.reset_launch_counts()
+    for block in E.VARIANT_BLOCKS:
+        feats = rng.normal(size=(3, 4, block)).astype(np.float32)
+        feats[1, 2, 5] = np.nan
+        args = (g4, torch.as_tensor(feats, device=cuda),
+                torch.as_tensor(np.sort(rng.integers(0, 7, 3)), device=cuda))
+        for reduction in E.REDUCTIONS:
+            for precision in E.PRECISIONS:
+                got = E.group_argmin_variant(*args, block=block, reduction=reduction,
+                                             precision=precision)
+                ref = E._group_argmin_variant_plain(*args, block, reduction, precision)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (block, reduction, precision)
+                assert got[1, 0, 5] == 31
+    counts = E.launch_counts()
+    assert len(counts) == 24 and set(counts.values()) == {1}
 
 
 def test_unfused_tail_equals_exact_on_card(cuda):

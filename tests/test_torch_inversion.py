@@ -405,13 +405,20 @@ def test_prepare_tables_cached_and_f64_default_on_cpu():
 # --------------------------------------------------------- (h) import hygiene
 
 def test_port_imports_no_jax():
-    code = ("import sys, xsarsea_tpu_torch, xsarsea_tpu_torch.windspeed.inversion, "
-            "xsarsea_tpu_torch.ops.inversion_kernels, xsarsea_tpu_torch.io.lut_io, "
-            "xsarsea_tpu_torch.models.cmod7, xsarsea_tpu_torch.models.nc_lut, "
-            "xsarsea_tpu_torch.models.pickle_lut\n"
+    """Every module of the port, found by walking the package, imports
+    without pulling in JAX, the JAX package or its optional dependencies."""
+    code = ("import importlib, pkgutil, sys, xsarsea_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(xsarsea_tpu_torch.__path__, "
+            "'xsarsea_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'ml_dtypes'))\n"
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad); print(*names); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    walked = set(proc.stdout.splitlines()[1].split())
+    assert {"xsarsea_tpu_torch.windspeed.inversion", "xsarsea_tpu_torch.ops.experiment_kernels",
+            "xsarsea_tpu_torch.scripts.bench_slab_forms",
+            "xsarsea_tpu_torch.scripts.bench_kernel_variants"} <= walked

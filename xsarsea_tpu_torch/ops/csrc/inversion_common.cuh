@@ -21,6 +21,28 @@ __device__ __forceinline__ float copol_cost(float l, float u_half, float v_half,
   return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
 }
 
+// The two rewrites of that cost that scripts/bench_slab_forms.py measures
+// (K5), with the operands their builders give:
+//   prescaled:   (l' - s0')^2 + (u/2 - ma/2)^2 + (v/2 - mz/2)^2, where
+//                l' = l * inv_dsig and s0' = s0 * inv_dsig, each rounded f32;
+//   expanded_uv: ((t*t + kr) + u2 * ma/2) + v2 * mz/2, t = l' - s0', with
+//                kr = (u/2)^2 + (v/2)^2 and u2 = -2 * u/2, v2 = -2 * v/2 per
+//                entry, dropping the per-pixel constant (ma/2)^2 + (mz/2)^2.
+__device__ __forceinline__ float prescaled_cost(float l, float u_half, float v_half, float s0,
+                                                float ma_half, float mz_half) {
+  const float d0 = __fsub_rn(l, s0);
+  const float d1 = __fsub_rn(u_half, ma_half);
+  const float d2 = __fsub_rn(v_half, mz_half);
+  return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
+}
+
+__device__ __forceinline__ float expanded_uv_cost(float l, float kr, float u2, float v2,
+                                                  float s0, float ma_half, float mz_half) {
+  const float t = __fsub_rn(l, s0);
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(t, t), kr), __fmul_rn(u2, ma_half)),
+                   __fmul_rn(v2, mz_half));
+}
+
 // The first minimum of one pixel's slab sweep: its row within the slab
 // (-1 when no cost is finite and below +inf), its column, and whether any
 // cost was NaN (the reference's NaN-propagating min poisons the pixel).
@@ -30,11 +52,11 @@ struct SlabArgmin {
   bool poisoned;
 };
 
-// Direct-form copol argmin over an n_rows x n_phi LUT slab (K2 and K3).
-// The slab sits in shared memory; u_b/v_b point at the slab's first row of
-// the halved wind-component grids in device memory. One thread sweeps its
-// pixel in row-major (wspd-major, phi-minor) order with a strict '<': the
-// first minimum wins, numpy's rule.
+// Direct-form copol argmin over an n_rows x n_phi LUT slab (K2, K3 and K5's
+// direct form). The slab sits in shared memory; u_b/v_b point at the slab's
+// first row of the halved wind-component grids in device memory. One thread
+// sweeps its pixel in row-major (wspd-major, phi-minor) order with a strict
+// '<': the first minimum wins, numpy's rule.
 __device__ __forceinline__ SlabArgmin copol_slab_argmin(const float* slab,
                                                         const float* __restrict__ u_b,
                                                         const float* __restrict__ v_b,
@@ -57,6 +79,17 @@ __device__ __forceinline__ SlabArgmin copol_slab_argmin(const float* slab,
     }
   }
   return m;
+}
+
+// Sentinels of K3's and K5's flat index: a NaN cost anywhere in the slab
+// (the TPU kernel's NaN min matches no lane), and the no-hit index the caller
+// passes, ((2^30 / n_phi) & ~1) * n_phi (the sweep's init row at lane 0).
+constexpr int kNanIdx = 1 << 30;
+
+__device__ __forceinline__ int slab_flat_index(SlabArgmin m, int r0, int n_phi, int no_hit) {
+  if (m.poisoned) return kNanIdx;
+  if (m.row < 0) return no_hit;
+  return (r0 + m.row) * n_phi + m.col;
 }
 
 // Crosspol 1-D argmin over one LUT row (K2 and K4), the reference's

@@ -1,0 +1,144 @@
+// K5: the slab-refine sweep in three cost forms, emitting the flat argmin index.
+//
+// Replaces scripts/bench_slab_forms.py:run_form (body _form_kernel), the
+// experiment that asks which cost form the slab sweep should use:
+//   * direct:      ((l - s0) * inv_dsig)^2 + (u/2 - ma/2)^2 + (v/2 - mz/2)^2,
+//                  K3's sweep itself (xs::copol_slab_argmin);
+//   * prescaled:   the LUT and s0 scaled by inv_dsig beforehand, one multiply
+//                  fewer per entry (xs::prescaled_cost);
+//   * expanded_uv: the wind terms expanded against a per-entry row operand
+//                  kr = (u/2)^2 + (v/2)^2, three multiplies fewer than direct
+//                  (xs::expanded_uv_cost); near-ties can flip.
+// The TPU kernel's pack-2 lanes, 128-lane padding and rows_per_iter were
+// Mosaic scheduling: the flat index into the (W, P) grid does not depend on
+// them, so the operands here are the port's unpacked K3 layout.
+//
+// Layout as K3 (slab_refine.cu): one CUDA block per 128-pixel (band, group)
+// bucket block, one thread per pixel. The block's 48-row x all-phi LUT slab
+// (and, for expanded_uv, the same rows of kr) is staged in shared memory;
+// u/v (or u2/v2) come through the read-only cache. Each thread sweeps its
+// pixel in row-major order with a strict '<' (xs::copol_slab_argmin's loop)
+// and writes K3's index with K3's sentinels: 2^30 for a NaN cost anywhere in
+// the slab, no_hit for no finite cost, 0 in all-padding blocks (vmask == 0).
+//
+// Bound on the H100, counted: FP32 operations. Per pixel 48 x 181 = 8,688
+// entries x (9, 8, 7) FP32 operations (direct, prescaled, expanded_uv) plus a
+// compare and the NaN test; device-memory traffic is 16 B/px in and 4 B/px
+// out. Measured, the sweep reaches ~12% of that bound and prescaled's
+// multiply fewer per entry gains nothing: the loop is limited elsewhere than
+// by FP32 issue (its loads or its compare chain). expanded_uv's second staged
+// operand doubles the shared memory a block holds (70 KB at the production
+// LUT), so half as many blocks fit on an SM as for the other two forms.
+#include "inversion_common.cuh"
+
+namespace {
+
+enum Form { kDirect = 0, kPrescaled = 1, kExpandedUV = 2 };
+
+// The sweep of xs::copol_slab_argmin with the cost of a rewritten form: the
+// same loop written out per form. (Through a template taking the cost as a
+// lambda, the direct sweep measured ~8% slower here and ~4% in K2.)
+template <int kForm>
+__device__ __forceinline__ xs::SlabArgmin form_slab_argmin(const float* slab, const float* s_kr,
+                                                           const float* __restrict__ u_b,
+                                                           const float* __restrict__ v_b,
+                                                           int n_rows, int n_phi, float s0,
+                                                           float ma_half, float mz_half) {
+  float best = CUDART_INF_F;
+  xs::SlabArgmin m{-1, 0, false};
+  for (int r = 0; r < n_rows; ++r) {
+    const int base = r * n_phi;
+    for (int c = 0; c < n_phi; ++c) {
+      const int i = base + c;
+      const float j =
+          kForm == kPrescaled
+              ? xs::prescaled_cost(slab[i], __ldg(u_b + i), __ldg(v_b + i), s0, ma_half, mz_half)
+              : xs::expanded_uv_cost(slab[i], s_kr[i], __ldg(u_b + i), __ldg(v_b + i), s0,
+                                     ma_half, mz_half);
+      m.poisoned |= (j != j);
+      if (j < best) {
+        best = j;
+        m.row = r;
+        m.col = c;
+      }
+    }
+  }
+  return m;
+}
+
+template <int kForm>
+__global__ void slab_forms_kernel(const float* __restrict__ lut, const float* __restrict__ u,
+                                  const float* __restrict__ v, const float* __restrict__ kr,
+                                  const float* __restrict__ feats, const int* __restrict__ sband,
+                                  const int* __restrict__ srow0, const int* __restrict__ vmask,
+                                  int* __restrict__ out, int wp_rows, int n_phi, int n_rows,
+                                  int no_hit) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int block = blockDim.x;
+  int* out_b = out + static_cast<size_t>(b) * block;
+  if (vmask[b] == 0) {
+    out_b[t] = 0;
+    return;
+  }
+  const int r0 = srow0[b];
+  const int entries = n_rows * n_phi;
+  float* slab = smem;
+  float* s_kr = smem + entries;  // expanded_uv only
+  const float* src = lut + (static_cast<size_t>(sband[b]) * wp_rows + r0) * n_phi;
+  const size_t row0 = static_cast<size_t>(r0) * n_phi;
+  for (int i = t; i < entries; i += block) {
+    slab[i] = src[i];
+    if (kForm == kExpandedUV) s_kr[i] = kr[row0 + i];
+  }
+  __syncthreads();
+
+  // (s0, ma/2, mz/2, 1/dsig) for direct; (s0 * inv_dsig, ma/2, mz/2, -) otherwise
+  const float4 f = reinterpret_cast<const float4*>(feats)[static_cast<size_t>(b) * block + t];
+  const float* u_b = u + row0;
+  const float* v_b = v + row0;
+  const xs::SlabArgmin m =
+      kForm == kDirect
+          ? xs::copol_slab_argmin(slab, u_b, v_b, n_rows, n_phi, f.x, f.y, f.z, f.w)
+          : form_slab_argmin<kForm>(slab, s_kr, u_b, v_b, n_rows, n_phi, f.x, f.y, f.z);
+  out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
+}
+
+template <int kForm>
+int launch(const float* lut, const float* u, const float* v, const float* kr,
+           const float* feats, const int* sband, const int* srow0, const int* vmask, int* out,
+           int n_blocks, int block, int wp_rows, int n_phi, int n_rows, int no_hit,
+           cudaStream_t stream) {
+  const size_t smem =
+      (kForm == kExpandedUV ? 2 : 1) * static_cast<size_t>(n_rows) * n_phi * sizeof(float);
+  cudaError_t err = xs::allow_smem(slab_forms_kernel<kForm>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  slab_forms_kernel<kForm><<<n_blocks, block, smem, stream>>>(
+      lut, u, v, kr, feats, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int xs_slab_forms(int form, const float* lut, const float* u, const float* v,
+                             const float* kr, const float* feats, const int* sband,
+                             const int* srow0, const int* vmask, int* out, int n_blocks,
+                             int block, int wp_rows, int n_phi, int n_rows, int no_hit,
+                             void* stream) {
+  if (n_blocks == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case kDirect:
+      return launch<kDirect>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
+                             wp_rows, n_phi, n_rows, no_hit, s);
+    case kPrescaled:
+      return launch<kPrescaled>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
+                                wp_rows, n_phi, n_rows, no_hit, s);
+    case kExpandedUV:
+      return launch<kExpandedUV>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks,
+                                 block, wp_rows, n_phi, n_rows, no_hit, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -26,8 +26,6 @@
 
 namespace {
 
-constexpr int kNanIdx = 1 << 30;
-
 __global__ void slab_refine_kernel(const float* __restrict__ lut_pad,
                                    const float* __restrict__ u_half,
                                    const float* __restrict__ v_half,
@@ -55,15 +53,7 @@ __global__ void slab_refine_kernel(const float* __restrict__ lut_pad,
   const xs::SlabArgmin m = xs::copol_slab_argmin(
       slab, u_half + static_cast<size_t>(r0) * n_phi, v_half + static_cast<size_t>(r0) * n_phi,
       n_rows, n_phi, f.x, f.y, f.z, f.w);
-  int flat;
-  if (m.poisoned) {
-    flat = kNanIdx;
-  } else if (m.row < 0) {
-    flat = no_hit;
-  } else {
-    flat = (r0 + m.row) * n_phi + m.col;
-  }
-  out_b[t] = flat;
+  out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
 }
 
 }  // namespace

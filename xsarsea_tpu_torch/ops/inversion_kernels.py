@@ -81,8 +81,9 @@ _PAD_LUT = 1e19  # padded LUT rows: cost overflows to +inf, never chosen
 _NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+# K5 and K6 (ops/experiment_kernels.py) build into the same library
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
-            "crosspol_argmin.cu")
+            "crosspol_argmin.cu", "slab_forms.cu", "group_argmin_variants.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -194,15 +195,25 @@ def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, 
     return out
 
 
-def _slab_argmin_plain(lut_pad, u_half, v_half, fb, band, r0):
-    """K2's and K3's slab sweep for the blocks ``band``/``r0`` (nb,) with
-    features ``fb`` (nb, block, >=4): per pixel the first strict minimum's
-    flat index within the slab, whether it is a finite cost, and whether
-    any cost is NaN (the reference's NaN-propagating min poisons it)."""
+def _direct_slab_cost(lut_pad, u_half, v_half):
+    """The direct-form slab cost ``cost(band, rows, fe)``: for blocks with
+    LUT bands ``band`` (nb,), slab rows ``rows`` (nb, SLAB_ROWS) and
+    features ``fe`` (nb, block, >=4, 1, 1), the costs (nb, block,
+    SLAB_ROWS, P)."""
+    def cost(band, rows, fe):
+        return _cost(lut_pad[band[:, None], rows][:, None], u_half[rows][:, None],
+                     v_half[rows][:, None], fe[:, :, 0], fe[:, :, 1], fe[:, :, 2], fe[:, :, 3])
+    return cost
+
+
+def _slab_argmin_plain(slab_cost, fb, band, r0):
+    """The slab sweep of K2, K3 and K5 for the blocks ``band``/``r0`` (nb,)
+    with features ``fb`` (nb, block, >=4): per pixel the first strict
+    minimum's flat index within the slab, whether it is a finite cost, and
+    whether any cost is NaN (the reference's NaN-propagating min poisons
+    it)."""
     rows = r0[:, None] + torch.arange(SLAB_ROWS, device=fb.device)  # (nb, SLAB_ROWS)
-    fe = fb[:, :, :, None, None]
-    j = _cost(lut_pad[band[:, None], rows][:, None], u_half[rows][:, None],
-              v_half[rows][:, None], fe[:, :, 0], fe[:, :, 1], fe[:, :, 2], fe[:, :, 3])
+    j = slab_cost(band, rows, fb[:, :, :, None, None])
     j = j.reshape(j.shape[0], fb.shape[1], -1)
     poisoned = torch.isnan(j).any(-1)
     jc = torch.where(torch.isnan(j), float("inf"), j)
@@ -228,6 +239,7 @@ def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr
     n_phi = lut_pad.shape[2]
     f = feats.reshape(n_blocks, block, 8)
     out = torch.zeros((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
+    slab_cost = _direct_slab_cost(lut_pad, u_half, v_half)
     for b0 in range(0, n_blocks, chunk_blocks):
         b1 = min(b0 + chunk_blocks, n_blocks)
         sel = torch.nonzero(vmask[b0:b1] != 0)[:, 0] + b0  # all-padding blocks stay 0
@@ -236,7 +248,7 @@ def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr
         band = sband[sel].to(torch.int64)
         r0 = srow0[sel].to(torch.int64)
         fb = f[sel]  # (nb, block, 8)
-        flat, hit, poisoned = _slab_argmin_plain(lut_pad, u_half, v_half, fb, band, r0)
+        flat, hit, poisoned = _slab_argmin_plain(slab_cost, fb, band, r0)
         row = r0[:, None] + torch.div(flat, n_phi, rounding_mode="floor")
         col = torch.where(poisoned, 0, flat % n_phi)
         wspd_co = torch.where(hit, w_pad[row], 0.0)
@@ -257,10 +269,10 @@ def _no_hit_flat(n_phi):
     return ((_NAN_IDX // n_phi) & ~1) * n_phi
 
 
-def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
-                       chunk_blocks=16):
+def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk_blocks):
+    """K3's output (and K5's) from a slab cost (see :func:`_direct_slab_cost`):
+    the winner's flat index with K3's sentinels, 0 in all-padding blocks."""
     n_blocks = sband.shape[0]
-    n_phi = lut_pad.shape[2]
     f = feats.reshape(n_blocks, block, 4)
     out = torch.zeros((n_blocks, block), dtype=torch.int32, device=feats.device)
     for b0 in range(0, n_blocks, chunk_blocks):
@@ -269,11 +281,17 @@ def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, bloc
         if sel.numel() == 0:
             continue
         r0 = srow0[sel].to(torch.int64)
-        flat, hit, poisoned = _slab_argmin_plain(lut_pad, u_half, v_half, f[sel],
-                                                 sband[sel].to(torch.int64), r0)
+        flat, hit, poisoned = _slab_argmin_plain(slab_cost, f[sel], sband[sel].to(torch.int64),
+                                                 r0)
         idx = torch.where(hit, r0[:, None] * n_phi + flat, _no_hit_flat(n_phi))
         out[sel] = torch.where(poisoned, _NAN_IDX, idx).to(torch.int32)
     return out
+
+
+def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
+                       chunk_blocks=16):
+    return _slab_index_plain(_direct_slab_cost(lut_pad, u_half, v_half), lut_pad.shape[2],
+                             feats, sband, srow0, vmask, block, chunk_blocks)
 
 
 def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64):
@@ -343,6 +361,10 @@ def _load():
             lib.xs_slab_refine.restype = i
             lib.xs_crosspol_argmin.argtypes = [p] * 5 + [i] * 3 + [p]
             lib.xs_crosspol_argmin.restype = i
+            lib.xs_slab_forms.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+            lib.xs_slab_forms.restype = i
+            lib.xs_group_argmin_variant.argtypes = [p] * 4 + [i] * 4 + [p]
+            lib.xs_group_argmin_variant.restype = i
             lib.xs_error_string.argtypes = [i]
             lib.xs_error_string.restype = ctypes.c_char_p
             _lib = lib
