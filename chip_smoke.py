@@ -9,6 +9,10 @@ it finishes; any failure exits non-zero:
 2. the build of the inversion kernels from ``xsarsea_tpu_torch/ops/csrc``;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    on the high-resolution LUTs and a 64 Kpx bucketed subsample of the scene;
+   then K2 and K3 on the seam cases of their slab sweep
+   (``xsarsea_tpu_torch/ops/slab_seams.py``: ties across its warps, chunks
+   and float4s, padding groups, NaN and infinite operands) at the LUT's
+   width, bit for bit and at their designed answers;
 4. the main path: dual-pol ``invert_from_model`` with models
    (gmf_cmod5n, gmf_s1_v2) on a 2**23-pixel seed-0 scene forward-modelled
    with the port's GMFs, checking that both kernels were launched, plus the
@@ -32,7 +36,9 @@ it finishes; any failure exits non-zero:
    form, and the coarse pass's nine expanded-form variants (K6) at 2**23
    pixels; each form and variant must have been launched by its driver and
    be bit-equal to its plain version on the driver's arguments, and the
-   direct form bit-equal to K3.
+   direct form (one pixel a thread, the loop K2 and K3 had before their
+   redesign) bit-equal to K3, whose time on the same arguments is printed
+   beside it.
 
 Each phase prints its seconds. The second-to-last line is a JSON object
 describing each kernel (each K5 form and K6 variant apart): its time and
@@ -170,6 +176,19 @@ def feats_of(name, args):
     return args[KERNELS[name][2]]
 
 
+def sweep_note(torch, K, name, args):
+    """For K2/K3, the work their slab sweep is given: live pixels, slots of
+    the blocks they run (vmask 1), and slots the sweep covers (32-pixel
+    groups holding a non-NaN s0); "" for the other kernels."""
+    if name not in ("slab_refine_fused", "slab_refine"):
+        return ""
+    s0 = feats_of(name, args)[:, 0].reshape(-1, K.SLAB_BLOCK)
+    run = args[-1].to(torch.bool)
+    groups = (~torch.isnan(s0[run])).reshape(-1, K.SLAB_BLOCK // 32, 32).any(-1)
+    return (f"; live px {int((~torch.isnan(s0)).sum())}, slots in running blocks "
+            f"{int(run.sum()) * K.SLAB_BLOCK}, slots swept {int(groups.sum()) * 32}")
+
+
 def time_against_plain(torch, K, name, args, kwargs, entry):
     """CUDA-event ms of the kernel (5 calls after a warm-up) and of its
     plain version (1), and the kernel's bound on these arguments."""
@@ -252,6 +271,31 @@ def hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, phase):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
         log(f"{phase} {name}: bit-equal to its plain version on {size} outputs "
             f"(feats {tuple(feats_of(name, args).shape)})")
+
+
+def hold_on_seams(torch, K, tables, report, phase):
+    """K2 and K3 against their plain versions on the seam cases of their
+    sweep at the LUT's width and height, and at the cases' designed K3
+    answers."""
+    from xsarsea_tpu_torch.ops.slab_seams import seam_cases
+
+    cases = seam_cases(n_phi=tables.co_lut.shape[2], n_wspd=tables.co_lut.shape[1])
+    block = {"block": K.SLAB_BLOCK}
+    for name, args, kwargs in (("slab_refine_fused", cases.k2_args("cuda"),
+                                {"has_cr": True, **block}),
+                               ("slab_refine", cases.k3_args("cuda"), block)):
+        err, size = hold_against_plain(torch, K, name, args, kwargs, phase)
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        line = (f"{phase} {name}: bit-equal to its plain version on the sweep's seam cases "
+                f"({size} outputs, {cases.sband.shape[0]} blocks, width {cases.n_phi})")
+        if name == "slab_refine":
+            flat = getattr(K, name)(*args, **kwargs).reshape(-1).cpu().numpy()
+            wrong = sum(int(flat[s] != e) for s, e in cases.expected.items())
+            if wrong:
+                raise SystemExit(f"{phase}: slab_refine misses {wrong} of the seam cases' "
+                                 f"{len(cases.expected)} designed answers")
+            line += f", and at their {len(cases.expected)} designed answers"
+        log(line)
 
 
 def device_rate(torch, K, tables, dev, reps):
@@ -399,7 +443,8 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
         log(f"phase 7 {name}: bit-equal to its plain version on {size} outputs at the unfused "
             f"tail's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
             f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms per call, bound "
-            f"{timed['bound_ms']:.3f} ms ({timed['bound_by']})")
+            f"{timed['bound_ms']:.3f} ms ({timed['bound_by']})"
+            f"{sweep_note(torch, K, name, args)}")
 
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 7")
 
@@ -435,7 +480,7 @@ def experiment_entry(torch, family, name, got, ref, ms, plain_ms, launches, boun
 def phase8(torch, K, report):
     """The experiment drivers: K5's cost forms and K6's variants at 2**23 px."""
     from xsarsea_tpu_torch.ops import experiment_kernels as E
-    from xsarsea_tpu_torch.scripts import bench_kernel_variants, bench_slab_forms
+    from xsarsea_tpu_torch.scripts import bench_kernel_variants, bench_slab_forms, cuda_ms
 
     # K5: the driver's run is the path, with launch counts
     E.reset_launch_counts()
@@ -455,12 +500,15 @@ def phase8(torch, K, report):
         line = (f"phase 8 {name}: bit-equal to its plain version on {ref.numel()} outputs "
                 f"({px} px); kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{cost_bound[0]:.4g} ms ({cost_bound[1]})")
-        if form == "direct":
-            k3 = K.slab_refine(*args[1:4], *args[5:])
+        if form == "direct":  # the pre-redesign loop against K3's sweep, same arguments
+            k3_args = (*args[1:4], *args[5:])
+            k3 = K.slab_refine(*k3_args)
             torch.cuda.synchronize()
             if not torch.equal(k3, r["out"]):
                 raise SystemExit("phase 8: the direct form differs from slab_refine (K3)")
-            line += "; bit-equal to slab_refine (K3)"
+            k3_ms = cuda_ms(lambda: K.slab_refine(*k3_args), bench_slab_forms.REPS)
+            line += (f"; bit-equal to slab_refine (K3), which takes {k3_ms:.3f} ms on the "
+                     f"same arguments (direct / K3 = {r['ms'] / k3_ms:.3f})")
         log(line)
     log(f"phase 8 slab-form flips: {json.dumps(res['flips'])}")
 
@@ -543,6 +591,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
 
     # phase 3: kernels against their plain versions, bit for bit
     hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 3")
+    hold_on_seams(torch, K, tables, report, "phase 3")
     done("phase 3 (with the scene and tables)")
 
     # phase 4: the main path, with launch counts
@@ -587,7 +636,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
         log(f"phase 5 {name}: bit-equal to its plain version on {size} outputs at the main "
             f"path's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
             f"{report[name]['ms']:.3f} ms, plain {report[name]['plain_ms']:.3f} ms per call, "
-            f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})")
+            f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})"
+            f"{sweep_note(torch, K, name, args)}")
     done("phase 5")
 
     # phase 6: fused against exact on the card

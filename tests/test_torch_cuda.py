@@ -12,6 +12,7 @@ import torch
 from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
+from xsarsea_tpu_torch.ops.slab_seams import seam_cases
 from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_pixels, \
     prepare_tables
 
@@ -131,6 +132,31 @@ def test_k3_k4_bit_equal_to_plain_versions(cuda):
     assert (got4.reshape(-1)[[5, 6]] == 0).all() and (got4.reshape(-1)[:5] > 0).all()
     assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "slab_refine": 1,
                                  "crosspol_argmin": 1}
+
+
+@pytest.mark.parametrize("n_phi", [37, 72, 181])
+def test_k2_k3_bit_equal_to_plain_versions_on_the_sweeps_seams(cuda, n_phi):
+    """K2 and K3 against their plain versions on the seam cases of their
+    sweep (ops/slab_seams.py): ties across warps, chunks, float4s and the
+    scalar tail (widths with and without one); padding that fills whole
+    groups or ends mid-group; NaN-s0 pixels with valid crosspol in groups
+    the sweep skips; NaN and +-inf LUT entries, 1/dsig = 0 and inf; a slab
+    of padding rows only."""
+    cases = seam_cases(n_phi=n_phi)
+    K.reset_launch_counts()
+    args2 = cases.k2_args(cuda)
+    args3 = cases.k3_args(cuda)
+    got2 = K.slab_refine_fused(*args2)
+    got3 = K.slab_refine(*args3)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK)
+    torch.cuda.synchronize()
+    assert torch.equal(got2, ref2)
+    assert torch.equal(got3, ref3)
+    flat = got3.reshape(-1).cpu().numpy()
+    assert all(flat[s] == e for s, e in cases.expected.items())
+    assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "slab_refine_fused": 1,
+                                 "slab_refine": 1}
 
 
 def test_k5_forms_bit_equal_to_plain_versions(cuda):
@@ -283,6 +309,12 @@ def test_kernel_wrappers_raise_not_fall_back(cuda):
         K.slab_refine(*ops[:3], feats4, one * 2, one * 0, one)
     with pytest.raises(ValueError, match="srow0"):
         K.slab_refine(*ops[:3], feats4, one * 0, one * (wp - K.SLAB_ROWS + 1), one)
+    with pytest.raises(ValueError, match="blocks of 128"):  # the sweep's layout is fixed
+        K.slab_refine(*ops[:3], torch.zeros((64, 4), device=cuda), one * 0, one * 0, one,
+                      block=64)
+    with pytest.raises(ValueError, match="blocks of 128"):
+        K.slab_refine_fused(*ops[:7], torch.zeros((64, 8), device=cuda), one * 0, one * 0, one,
+                            block=64)
     with pytest.raises(ValueError, match="band_of_block"):
         K.crosspol_argmin(*ops[5:7], torch.zeros((256, 4), device=cuda), one * 2)
     with pytest.raises(ValueError, match="aligned"):

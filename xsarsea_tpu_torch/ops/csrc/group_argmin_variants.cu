@@ -49,12 +49,6 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 __device__ __forceinline__ float dot4(float4 g, float f0, float f1, float f2, float f3) {
   return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(g.x, f0), __fmul_rn(g.y, f1)),
                              __fmul_rn(g.z, f2)),
@@ -109,7 +103,7 @@ __global__ void group_argmin_variant_kernel(const float* __restrict__ g4,
       for (int k = 0; k < kGroupsPerTile; ++k) {
         float m = CUDART_INF_F;
         for (int e = k * kGroupSize; e < (k + 1) * kGroupSize; ++e) {
-          m = min_nan(m, dot4(s_g[e], f0, f1, f2, f3));
+          m = xs::min_nan(m, dot4(s_g[e], f0, f1, f2, f3));
         }
         nan |= (m != m);
         if (m < best) {
@@ -119,7 +113,7 @@ __global__ void group_argmin_variant_kernel(const float* __restrict__ g4,
       }
     } else {  // kFlatMin: rows row0 + 1 .. row0 + 7 are +inf and never win
       float m = CUDART_INF_F;
-      for (int e = 0; e < kTile; ++e) m = min_nan(m, dot4(s_g[e], f0, f1, f2, f3));
+      for (int e = 0; e < kTile; ++e) m = xs::min_nan(m, dot4(s_g[e], f0, f1, f2, f3));
       nan |= (m != m);
       if (m < best) {
         best = m;

@@ -52,11 +52,12 @@ struct SlabArgmin {
   bool poisoned;
 };
 
-// Direct-form copol argmin over an n_rows x n_phi LUT slab (K2, K3 and K5's
-// direct form). The slab sits in shared memory; u_b/v_b point at the slab's
-// first row of the halved wind-component grids in device memory. One thread
-// sweeps its pixel in row-major (wspd-major, phi-minor) order with a strict
-// '<': the first minimum wins, numpy's rule.
+// Direct-form copol argmin over an n_rows x n_phi LUT slab, one pixel per
+// thread: K5's direct form, the baseline of its cost-form experiment (K2 and
+// K3 sweep with xs::slab::sweep below). The slab sits in shared memory;
+// u_b/v_b point at the slab's first row of the halved wind-component grids in
+// device memory. One thread sweeps its pixel in row-major (wspd-major,
+// phi-minor) order with a strict '<': the first minimum wins, numpy's rule.
 __device__ __forceinline__ SlabArgmin copol_slab_argmin(const float* slab,
                                                         const float* __restrict__ u_b,
                                                         const float* __restrict__ v_b,
@@ -91,6 +92,269 @@ __device__ __forceinline__ int slab_flat_index(SlabArgmin m, int r0, int n_phi, 
   if (m.row < 0) return no_hit;
   return (r0 + m.row) * n_phi + m.col;
 }
+
+// min that propagates NaN (PTX min.NaN.f32, sm_80+), as jnp.minimum does.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The slab sweep of K2 and K3 on Hopper.
+//
+// A CUDA block holds one 128-pixel (band, group) bucket block and kWarps = 4
+// warps. Lane l of every warp owns the pixels l, l + 32, l + 64 and l + 96
+// (P = 4 a thread, one per 32-pixel group), and warp w sweeps the slab rows
+// r = w (mod 4). So each (l, u, v) triple read from shared memory (one
+// broadcast for the whole warp) feeds four cost evaluations, a thread runs
+// four independent compare chains, and each pixel keeps four running minima,
+// one per warp; they merge at the end by (cost, flat index), which is
+// numpy's first minimum over the whole slab. A running minimum is the
+// NaN-propagating min of the TPU kernel (_slab_sweep: jnp.minimum beside a
+// strict '<'), so a NaN cost anywhere in a chain leaves its minimum NaN and
+// poisons the pixel, with no separate NaN test per entry. The four entries
+// of a float4 are reduced to their minimum first, and only that meets the
+// chain's compare and index select; after the sweep each chain rescans its
+// winning four for the first entry that holds the minimum.
+//
+// The slab streams through shared memory kChunkRows rows at a time, l, u and
+// v each, double-buffered with 4-byte cp.async (the rows of an odd-width LUT
+// are not 16-byte aligned in device memory). Rows are stored with a stride
+// rounded up to 4 floats, so the sweep reads float4s; it stops at n_phi and
+// never evaluates the stride's padding. 2 x 3 x 8 rows x 184 x 4 B = 35 KB at
+// the production LUT (181 phi), what one 48-row slab took before.
+//
+// A 32-pixel group whose s0 are all NaN (the padding slots at a bucket's end,
+// or pixels with no copol sigma0) is not swept: a NaN s0 makes every cost
+// NaN, so each of its pixels is poisoned, which is what the sweep would give.
+// The groups left are swept by a loop compiled for their count (1-4), so a
+// block whose padding fills whole groups does proportionally less work.
+namespace slab {
+
+constexpr int kPixels = 128;              // pixels per block: SLAB_BLOCK
+constexpr int kWarps = 4;                 // row chains per pixel
+constexpr int kThreads = 32 * kWarps;     // == kPixels: thread t merges pixel t
+constexpr int kGroups = kPixels / 32;     // pixels per thread
+constexpr int kChunkRows = 8;             // slab rows per shared-memory stage
+
+__host__ __device__ constexpr int row_stride(int n_phi) { return (n_phi + 3) & ~3; }
+
+// Dynamic shared memory of a block: two stages of l, u, v, reused at the end
+// for the per-warp partial minima.
+inline size_t smem_bytes(int n_phi) {
+  const size_t stages = 2 * 3 * static_cast<size_t>(kChunkRows) * row_stride(n_phi);
+  const size_t partials = 2 * static_cast<size_t>(kWarps) * kPixels;
+  return (stages > partials ? stages : partials) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// A block's slab in device memory: the first of its n_rows rows of the LUT
+// band and of the halved wind-component grids, n_phi floats a row.
+struct Slab {
+  const float* __restrict__ lut;
+  const float* __restrict__ u;
+  const float* __restrict__ v;
+  int n_rows;
+  int n_phi;
+};
+
+// Issue the copies of slab rows [row0, row0 + rows) of the three operands into
+// one stage (l, u, v planes of kChunkRows x ld floats each), as one group.
+__device__ __forceinline__ void stage_rows(float* stage, const Slab& s, int row0, int rows,
+                                           int ld) {
+  const int plane = kChunkRows * ld;
+  for (int rr = 0; rr < rows; ++rr) {
+    const size_t src = static_cast<size_t>(row0 + rr) * s.n_phi;
+    for (int c = threadIdx.x; c < s.n_phi; c += kThreads) {
+      cp_async4(stage + rr * ld + c, s.lut + src + c);
+      cp_async4(stage + plane + rr * ld + c, s.u + src + c);
+      cp_async4(stage + 2 * plane + rr * ld + c, s.v + src + c);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The G pixels one thread sweeps: their features and running minima. idx is
+// a slab-local flat index r * n_phi + c, -1 while no cost has been finite:
+// during the sweep the first entry of the float4 (or the tail entry) where
+// the chain's minimum was first reached, after resolve() the entry itself.
+template <int G>
+struct Chains {
+  float s0[G], ma[G], mz[G], inv[G];
+  float best[G];
+  int idx[G];
+
+  __device__ __forceinline__ float cost(int k, float l, float u, float v) const {
+    return copol_cost(l, u, v, s0[k], ma[k], mz[k], inv[k]);
+  }
+
+  // The strict '<' keeps the chain's first minimum; NaN propagates into best.
+  __device__ __forceinline__ void keep(int k, float j, int e) {
+    const bool better = j < best[k];
+    best[k] = min_nan(best[k], j);
+    idx[k] = better ? e : idx[k];
+  }
+
+  // Entries e..e+3 of one row: their NaN-propagating minimum against the
+  // chain's, one compare and one select for four entries.
+  __device__ __forceinline__ void step4(float4 l, float4 u, float4 v, int e) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const float j01 = min_nan(cost(k, l.x, u.x, v.x), cost(k, l.y, u.y, v.y));
+      const float j23 = min_nan(cost(k, l.z, u.z, v.z), cost(k, l.w, u.w, v.w));
+      keep(k, min_nan(j01, j23), e);
+    }
+  }
+
+  __device__ __forceinline__ void step(float l, float u, float v, int e) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) keep(k, cost(k, l, u, v), e);
+  }
+
+  // The first entry at or after idx, within its four, whose cost is the
+  // chain's minimum: the chain's first minimum (every earlier four's
+  // minimum is larger). The costs are recomputed from device memory, bit
+  // for bit those of the sweep.
+  __device__ __forceinline__ void resolve(const Slab& s) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (idx[k] < 0 || best[k] != best[k]) continue;
+      const int row = idx[k] / s.n_phi;
+      const int c0 = idx[k] - row * s.n_phi;
+      const int end = min(c0 + 4, s.n_phi);
+      for (int c = c0; c < end; ++c) {
+        const size_t i = static_cast<size_t>(row) * s.n_phi + c;
+        if (cost(k, s.lut[i], s.u[i], s.v[i]) == best[k]) {
+          idx[k] = row * s.n_phi + c;
+          break;
+        }
+      }
+    }
+  }
+};
+
+// Sweep the slab for the G live groups (the set bits of live), then leave
+// each warp's partial (minimum, index) per pixel in smem: part_best[w *
+// kPixels + p], part_idx likewise (p = 32 * group + lane). Every thread of
+// the block calls it with the same G.
+template <int G>
+__device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict__ feats_b,
+                             int feat_stride, unsigned live) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int grp[G];  // the live groups, in order
+  Chains<G> ch;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    grp[k] = __ffs(live) - 1;
+    live &= live - 1;
+    const float* f = feats_b + static_cast<size_t>(32 * grp[k] + lane) * feat_stride;
+    ch.s0[k] = f[0];
+    ch.ma[k] = f[1];
+    ch.mz[k] = f[2];
+    ch.inv[k] = f[3];
+    ch.best[k] = CUDART_INF_F;
+    ch.idx[k] = -1;
+  }
+
+  const int n_phi = s.n_phi;
+  const int ld = row_stride(n_phi);
+  const int plane = kChunkRows * ld;
+  const int n_chunks = (s.n_rows + kChunkRows - 1) / kChunkRows;
+  stage_rows(smem, s, 0, min(kChunkRows, s.n_rows), ld);
+  for (int k = 0; k < n_chunks; ++k) {
+    const int row0 = k * kChunkRows;
+    if (k + 1 < n_chunks) {  // prefetch the next chunk into the other stage
+      const int next = row0 + kChunkRows;
+      stage_rows(smem + ((k + 1) & 1) * 3 * plane, s, next, min(kChunkRows, s.n_rows - next),
+                 ld);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* stage = smem + (k & 1) * 3 * plane;
+    const int rows = min(kChunkRows, s.n_rows - row0);
+    for (int rr = warp; rr < rows; rr += kWarps) {
+      const float* L = stage + rr * ld;
+      const float* U = L + plane;
+      const float* V = U + plane;
+      int e = (row0 + rr) * n_phi;
+      int c = 0;
+      for (; c + 4 <= n_phi; c += 4, e += 4) {
+        const float4 l4 = *reinterpret_cast<const float4*>(L + c);
+        const float4 u4 = *reinterpret_cast<const float4*>(U + c);
+        const float4 v4 = *reinterpret_cast<const float4*>(V + c);
+        ch.step4(l4, u4, v4, e);
+      }
+      for (; c < n_phi; ++c, ++e) ch.step(L[c], U[c], V[c], e);
+    }
+    __syncthreads();  // the stage is refilled next, or reused for the partials
+  }
+  ch.resolve(s);
+
+  float* part_best = smem;
+  int* part_idx = reinterpret_cast<int*>(smem + kWarps * kPixels);
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int p = warp * kPixels + 32 * grp[k] + lane;
+    part_best[p] = ch.best[k];
+    part_idx[p] = ch.idx[k];
+  }
+}
+
+// The first minimum of pixel threadIdx.x of the block over its slab. feats_b
+// points at the block's first pixel's features (s0, ma/2, mz/2, 1/dsig, then
+// feat_stride - 4 others). Needs kThreads threads and smem_bytes(s.n_phi) of
+// 16-byte aligned dynamic shared memory.
+__device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
+                                            const float* __restrict__ feats_b, int feat_stride) {
+  const int lane = threadIdx.x & 31;
+  // groups with a pixel whose s0 is not NaN; every warp finds the same ones
+  unsigned live = 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    const float s0 = feats_b[static_cast<size_t>(32 * g + lane) * feat_stride];
+    live |= static_cast<unsigned>(__any_sync(0xffffffffu, s0 == s0)) << g;
+  }
+  switch (__popc(live)) {
+    case 1: sweep_groups<1>(smem, s, feats_b, feat_stride, live); break;
+    case 2: sweep_groups<2>(smem, s, feats_b, feat_stride, live); break;
+    case 3: sweep_groups<3>(smem, s, feats_b, feat_stride, live); break;
+    case 4: sweep_groups<4>(smem, s, feats_b, feat_stride, live); break;
+    default: break;  // no live group: nothing to sweep
+  }
+  __syncthreads();
+
+  SlabArgmin m{-1, 0, true};
+  if ((live >> (threadIdx.x >> 5)) & 1) {
+    const float* part_best = smem;
+    const int* part_idx = reinterpret_cast<const int*>(smem + kWarps * kPixels);
+    float best = CUDART_INF_F;
+    int idx = -1;
+    m.poisoned = false;
+    for (int w = 0; w < kWarps; ++w) {
+      const float b = part_best[w * kPixels + threadIdx.x];
+      const int i = part_idx[w * kPixels + threadIdx.x];
+      m.poisoned |= (b != b);
+      if (b < best || (b == best && i < idx)) {  // (cost, flat index) order
+        best = b;
+        idx = i;
+      }
+    }
+    if (!m.poisoned && idx >= 0) {
+      m.row = idx / s.n_phi;
+      m.col = idx % s.n_phi;
+    }
+  }
+  return m;
+}
+
+}  // namespace slab
 
 // Crosspol 1-D argmin over one LUT row (K2 and K4), the reference's
 // _crosspol_kernel: j = ((lut - s0) / dsig)^2 + (w/2 - wco/2)^2 * has_co, a

@@ -3,7 +3,9 @@
 // Replaces scripts/bench_slab_forms.py:run_form (body _form_kernel), the
 // experiment that asks which cost form the slab sweep should use:
 //   * direct:      ((l - s0) * inv_dsig)^2 + (u/2 - ma/2)^2 + (v/2 - mz/2)^2,
-//                  K3's sweep itself (xs::copol_slab_argmin);
+//                  K3's cost, in the one-pixel-a-thread loop K2 and K3 ran
+//                  before their sweep was redesigned (xs::copol_slab_argmin),
+//                  kept as the experiment's baseline;
 //   * prescaled:   the LUT and s0 scaled by inv_dsig beforehand, one multiply
 //                  fewer per entry (xs::prescaled_cost);
 //   * expanded_uv: the wind terms expanded against a per-entry row operand
@@ -13,7 +15,7 @@
 // Mosaic scheduling: the flat index into the (W, P) grid does not depend on
 // them, so the operands here are the port's unpacked K3 layout.
 //
-// Layout as K3 (slab_refine.cu): one CUDA block per 128-pixel (band, group)
+// K3's layout before its redesign: one CUDA block per 128-pixel (band, group)
 // bucket block, one thread per pixel. The block's 48-row x all-phi LUT slab
 // (and, for expanded_uv, the same rows of kr) is staged in shared memory;
 // u/v (or u2/v2) come through the read-only cache. Each thread sweeps its
@@ -25,10 +27,12 @@
 // entries x (9, 8, 7) FP32 operations (direct, prescaled, expanded_uv) plus a
 // compare and the NaN test; device-memory traffic is 16 B/px in and 4 B/px
 // out. Measured, the sweep reaches ~12% of that bound and prescaled's
-// multiply fewer per entry gains nothing: the loop is limited elsewhere than
-// by FP32 issue (its loads or its compare chain). expanded_uv's second staged
-// operand doubles the shared memory a block holds (70 KB at the production
-// LUT), so half as many blocks fit on an SM as for the other two forms.
+// multiply fewer per entry gains nothing: the loop issues ~29 instructions per
+// entry and pixel (two loads with their 64-bit address arithmetic, the
+// compare, three selects and the NaN test around the 9 FP32 operations), and
+// those bound it. expanded_uv's second staged operand doubles the shared
+// memory a block holds (70 KB at the production LUT), so half as many blocks
+// fit on an SM as for the other two forms.
 #include "inversion_common.cuh"
 
 namespace {

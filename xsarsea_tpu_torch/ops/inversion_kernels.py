@@ -480,8 +480,8 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
         "feats": (feats, torch.float32, (n_blocks * block, 8)),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
-    if not 0 < block <= 1024:
-        raise ValueError("slab_refine_fused: block must be in (0, 1024]")
+    if block != SLAB_BLOCK:
+        raise ValueError(f"slab_refine_fused: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - SLAB_ROWS + 1, "srow0")
     out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
@@ -524,8 +524,8 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
-    if feats.data_ptr() % 16 or not 0 < block <= 1024:
-        raise ValueError("slab_refine: feats must be 16-byte aligned, block in (0, 1024]")
+    if block != SLAB_BLOCK:
+        raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - SLAB_ROWS + 1, "srow0")
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
