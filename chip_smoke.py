@@ -12,7 +12,12 @@ it finishes; any failure exits non-zero:
    then K2 and K3 on the seam cases of their slab sweep
    (``xsarsea_tpu_torch/ops/slab_seams.py``: ties across its warps, chunks
    and float4s, padding groups, NaN and infinite operands) at the LUT's
-   width, bit for bit and at their designed answers;
+   width, bit for bit and at their designed answers; K1, K4 and K2's
+   crosspol tail on theirs (``xsarsea_tpu_torch/ops/coarse_seams.py``) at
+   the path's widths (46 coarse columns; 155 and 771 crosspol entries),
+   likewise; and the crosspol loop's hoisted quotient against the true
+   divide, bit for bit, on 2**26 random bit patterns, 2**26 pairs inside
+   its windows and an edge set with the crosspol LUT's own differences;
 4. the main path: dual-pol ``invert_from_model`` with models
    (gmf_cmod5n, gmf_s1_v2) on a 2**23-pixel seed-0 scene forward-modelled
    with the port's GMFs, checking that both kernels were launched, plus the
@@ -40,6 +45,11 @@ it finishes; any failure exits non-zero:
    redesign) bit-equal to K3, whose time on the same arguments is printed
    beside it.
 
+``python3 chip_smoke.py --through N`` (N from 3 to 7) stops after phase N,
+for a quicker look at the phases before it while a kernel is being worked
+on; it prints neither of the two result lines below, which only a whole run
+earns.
+
 Each phase prints its seconds. The second-to-last line is a JSON object
 describing each kernel (each K5 form and K6 variant apart): its time and
 its plain version's on the path's arguments, its launches, and its bound,
@@ -54,6 +64,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gzip
 import json
@@ -177,16 +188,18 @@ def feats_of(name, args):
 
 
 def sweep_note(torch, K, name, args):
-    """For K2/K3, the work their slab sweep is given: live pixels, slots of
-    the blocks they run (vmask 1), and slots the sweep covers (32-pixel
-    groups holding a non-NaN s0); "" for the other kernels."""
-    if name not in ("slab_refine_fused", "slab_refine"):
-        return ""
-    s0 = feats_of(name, args)[:, 0].reshape(-1, K.SLAB_BLOCK)
-    run = args[-1].to(torch.bool)
-    groups = (~torch.isnan(s0[run])).reshape(-1, K.SLAB_BLOCK // 32, 32).any(-1)
-    return (f"; live px {int((~torch.isnan(s0)).sum())}, slots in running blocks "
-            f"{int(run.sum()) * K.SLAB_BLOCK}, slots swept {int(groups.sum()) * 32}")
+    """The work a kernel's sweep is given: live pixels (those whose first
+    feature, s0, is not NaN), slots of the blocks it runs (for K2/K3 those
+    with vmask 1), and slots it sweeps (32-pixel groups holding a live
+    pixel)."""
+    s0 = feats_of(name, args)[:, 0]
+    if name in ("slab_refine_fused", "slab_refine"):
+        s0 = s0.reshape(-1, K.SLAB_BLOCK)
+        s0 = s0[args[-1].to(torch.bool)]
+    live = ~torch.isnan(s0)
+    groups = live.reshape(-1, 32).any(-1)
+    return (f"; live px {int(live.sum())}, slots in running blocks {s0.numel()}, "
+            f"slots swept {int(groups.sum()) * 32}")
 
 
 def time_against_plain(torch, K, name, args, kwargs, entry):
@@ -271,6 +284,7 @@ def hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, phase):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
         log(f"{phase} {name}: bit-equal to its plain version on {size} outputs "
             f"(feats {tuple(feats_of(name, args).shape)})")
+    return calls
 
 
 def hold_on_seams(torch, K, tables, report, phase):
@@ -296,6 +310,62 @@ def hold_on_seams(torch, K, tables, report, phase):
                                  f"{len(cases.expected)} designed answers")
             line += f", and at their {len(cases.expected)} designed answers"
         log(line)
+
+
+def hold_on_coarse_seams(torch, K, n_cols, crosspol_widths, n_phi, report, phase):
+    """K1 on the seam cases of its sweep at ``n_cols`` coarse columns, K4 on
+    the crosspol loop's at each of ``crosspol_widths`` and K2 on them at the
+    last of these (its slab ``n_phi`` wide): against their plain versions,
+    bit for bit, and at the cases' designed answers."""
+    from xsarsea_tpu_torch.ops import coarse_seams
+
+    def hold(name, args, kwargs, expected, got_of, what):
+        err, size = hold_against_plain(torch, K, name, args, kwargs, phase)
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        got = got_of(getattr(K, name)(*args, **kwargs)).cpu().numpy()
+        wrong = sum(int(got[s] != e) for s, e in expected.items())
+        if wrong:
+            raise SystemExit(f"{phase}: {name} misses {wrong} of the {len(expected)} designed "
+                             f"answers of {what}")
+        log(f"{phase} {name}: bit-equal to its plain version on {what} ({size} outputs), "
+            f"and at their {len(expected)} designed answers")
+
+    cases = coarse_seams.coarse_seam_cases(n_cols)
+    hold("group_argmin", cases.args("cuda"), {"block": K.GROUP_BLOCK}, cases.expected,
+         lambda out: out.reshape(-1), f"its sweep's seam cases, {n_cols} columns")
+    for n_cr in crosspol_widths:
+        cases = coarse_seams.crosspol_seam_cases(n_cr)
+        hold("crosspol_argmin", cases.args("cuda"), {"block": K.CR_BLOCK}, cases.expected,
+             lambda out: out.reshape(-1), f"the crosspol loop's seam cases, {n_cr} entries")
+    fused, expected = coarse_seams.fused_crosspol_seam_cases(crosspol_widths[-1], n_phi)
+    hold("slab_refine_fused", fused.k2_args("cuda"), {"has_cr": True, "block": K.SLAB_BLOCK},
+         expected, lambda out: out.permute(0, 2, 1).reshape(-1, 4)[:, 2],
+         f"the crosspol loop's seam cases, {crosspol_widths[-1]} entries")
+
+
+def hold_quotient(torch, K, luts, random_pairs, phase):
+    """The crosspol loop's hoisted quotient against the true divide on the
+    card (``a / b``, IEEE), bit for bit and NaN for NaN: ``random_pairs``
+    random bit patterns, as many pairs inside the hoisted route's windows,
+    and the edge set with the differences of ``luts``."""
+    from xsarsea_tpu_torch.ops import coarse_seams
+
+    sets = {"edge": coarse_seams.quotient_edge_set("cuda", luts)}
+    if random_pairs:
+        sets["random-bit"] = coarse_seams.quotient_random_set(random_pairs, 0, "cuda", False)
+        sets["in-window"] = coarse_seams.quotient_random_set(random_pairs, 1, "cuda", True)
+    notes = []
+    for name, (a, b) in sets.items():
+        q, hoisted = K.crosspol_quotient(a, b)
+        ref = a / b
+        same = (q.view(torch.int32) == ref.view(torch.int32)) | (q.isnan() & ref.isnan())
+        n_hoisted = int(hoisted.sum())
+        if not bool(same.all()) or n_hoisted == 0:
+            raise SystemExit(f"{phase}: the hoisted quotient differs from the true divide on "
+                             f"{int((~same).sum())} of {a.numel()} {name} pairs "
+                             f"({n_hoisted} hoisted)")
+        notes.append(f"{a.numel()} {name} pairs ({n_hoisted} hoisted)")
+    log(f"{phase} crosspol quotient: bit-equal to the true divide on {', '.join(notes)}")
 
 
 def device_rate(torch, K, tables, dev, reps):
@@ -430,6 +500,7 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
     # device-resident rate, K3/K4 against their plain versions on a subsample
     # and on one 2**22-pixel piece's arguments, with their times
     hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 7")
+    hold_quotient(torch, K, [tables.cr_lut], 0, "phase 7")
     times, calls = device_rate(torch, K, tables, dev_inputs(0, n), reps)
     log(f"phase 7 invert_pixels device-resident f32, unfused tail: "
         f"{n / statistics.median(times) / 1e6:.3f} Mpx/s (median of {reps}: "
@@ -540,7 +611,7 @@ def phase8(torch, K, report):
             f"bound {variant_bound[0]:.4g} ms ({variant_bound[1]})")
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
     import torch
 
     if not torch.cuda.is_available():
@@ -563,6 +634,9 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
+        if phase.startswith(f"phase {through}") and through < 8:
+            log(f"stopped after phase {through}, as asked: no result line")
+            raise SystemExit(0)
 
     # phase 1: the card
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -590,8 +664,12 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
     dev_inputs = device_inputs(torch, sc, sc["s0_cr_db"])
 
     # phase 3: kernels against their plain versions, bit for bit
-    hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 3")
+    calls = hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 3")
     hold_on_seams(torch, K, tables, report, "phase 3")
+    hold_on_coarse_seams(torch, K, calls["group_argmin"][0][1].shape[1],
+                         (155, tables.cr_lut.shape[1]), tables.co_lut.shape[2], report,
+                         "phase 3")
+    hold_quotient(torch, K, [tables.cr_lut], 1 << 26, "phase 3")
     done("phase 3 (with the scene and tables)")
 
     # phase 4: the main path, with launch counts
@@ -661,4 +739,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3):
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--through", type=int, default=8, choices=range(3, 9), metavar="N",
+                        help="stop after phase N (3-7); the default runs all eight phases")
+    sys.exit(run(through=parser.parse_args().through))

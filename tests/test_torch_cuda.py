@@ -12,6 +12,9 @@ import torch
 from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
+from xsarsea_tpu_torch.ops.coarse_seams import (coarse_seam_cases, crosspol_seam_cases,
+                                                fused_crosspol_seam_cases, quotient_edge_set,
+                                                quotient_random_set)
 from xsarsea_tpu_torch.ops.slab_seams import seam_cases
 from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_pixels, \
     prepare_tables
@@ -157,6 +160,94 @@ def test_k2_k3_bit_equal_to_plain_versions_on_the_sweeps_seams(cuda, n_phi):
     assert all(flat[s] == e for s, e in cases.expected.items())
     assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "slab_refine_fused": 1,
                                  "slab_refine": 1}
+
+
+def _wrong(got, expected):
+    return {s: (got[s], e) for s, e in expected.items() if got[s] != e}
+
+
+@pytest.mark.parametrize("n_cols", [19, 46, 48])
+def test_k1_bit_equal_to_plain_version_on_its_seams(cuda, n_cols):
+    """K1 against its plain version and its designed answers on the seam
+    cases of its sweep (ops/coarse_seams.py): equal group minima across and
+    within its chains and pixel sets, the minimum beside the stride's NaN
+    padding, NaN entries that neither win nor poison, pixels without a
+    finite cost, padding groups; widths with and without padding."""
+    cases = coarse_seam_cases(n_cols)
+    K.reset_launch_counts()
+    args = cases.args(cuda)
+    got = K.group_argmin(*args)
+    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
+    assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "group_argmin": 1}
+
+
+@pytest.mark.parametrize("n_cr", [155, 160, 771])
+def test_k4_k2_bit_equal_to_plain_versions_on_the_crosspol_seams(cuda, n_cr):
+    """K4 and K2 against their plain versions and their designed answers on
+    the crosspol loop's seam cases: ties within and across float4s, in the
+    scalar tail, at the first and last entry, with and without a prior; NaN
+    and infinite LUT entries; dsig_cr and s0_cr inside, at the edges of and
+    outside the hoisted quotient's windows, denormal divisors included;
+    pixels that skip the crosspol beside pixels that run it; padding."""
+    cases = crosspol_seam_cases(n_cr)
+    feats = cases.feats.copy()
+    denormal = np.nonzero(feats[:, 1] == np.float32(2.0 ** -21))[0]
+    feats[denormal[::2], 1] = 1e-40  # every second 2**-21 divisor becomes a denormal
+    K.reset_launch_counts()
+    for f, expected in ((cases.feats, cases.expected), (feats, {})):
+        args = (*cases.args(cuda)[:2], torch.as_tensor(f, device=cuda), cases.args(cuda)[3])
+        got = K.crosspol_argmin(*args)
+        ref = K._crosspol_argmin_plain(*args, block=K.CR_BLOCK)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert not _wrong(got.reshape(-1).cpu().numpy(), expected)
+
+    fused, expected = fused_crosspol_seam_cases(n_cr, n_phi=72)
+    args2 = fused.k2_args(cuda)
+    got2 = K.slab_refine_fused(*args2)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK)
+    torch.cuda.synchronize()
+    assert torch.equal(got2, ref2)
+    assert not _wrong(got2.permute(0, 2, 1).reshape(-1, 4)[:, 2].cpu().numpy(), expected)
+    assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "crosspol_argmin": 2,
+                                 "slab_refine_fused": 1}
+
+
+def _crosspol_luts():
+    """The two crosspol tables of ``chip_smoke.py``'s paths, in dB."""
+    from pathlib import Path
+
+    from xsarsea_tpu_torch.models import register_pickle_luts
+
+    register_pickle_luts(str(Path(__file__).parent / "data" / "sarwing_luts" / "GMF_fix_cr_2_1"))
+    return [np.asarray(get_model(name).to_lut(units="dB").values)
+            for name in ("gmf_s1_v2", "sarwing_lut__fix_cr_2_1")]
+
+
+def test_hoisted_quotient_bit_equal_to_the_true_divide(cuda):
+    """The crosspol argmin's quotient (hoisted inside its windows, the true
+    divide outside) against ``a / b`` on the card, bit for bit, NaN for NaN:
+    2**26 random bit patterns, 2**26 pairs drawn inside the windows, and the
+    edge set (significands of all ones and all zeros, the windows' edges,
+    zeros, infinities, NaNs, denormals, overflowing and underflowing
+    quotients, dsig 0.1, 0.3 and 1.0 under every entry of the two crosspol
+    tables minus their neighbours)."""
+    sets = {"random bits": quotient_random_set(1 << 26, 0, cuda, windowed=False),
+            "inside the windows": quotient_random_set(1 << 26, 1, cuda, windowed=True),
+            "edges": quotient_edge_set(cuda, _crosspol_luts())}
+    for name, (a, b) in sets.items():
+        q, hoisted = K.crosspol_quotient(a, b)
+        ref = a / b
+        same = (q.view(torch.int32) == ref.view(torch.int32)) | (q.isnan() & ref.isnan())
+        bad = torch.nonzero(~same)[:8, 0]
+        assert bad.numel() == 0, (name, int((~same).sum()), [
+            (hex(x & 0xffffffff), hex(y & 0xffffffff)) for x, y in
+            zip(a[bad].view(torch.int32).tolist(), b[bad].view(torch.int32).tolist())])
+        share = float(hoisted.float().mean())
+        assert share > (0.9 if name == "inside the windows" else 0.01), (name, share)
 
 
 def test_k5_forms_bit_equal_to_plain_versions(cuda):
@@ -317,6 +408,14 @@ def test_kernel_wrappers_raise_not_fall_back(cuda):
                             block=64)
     with pytest.raises(ValueError, match="band_of_block"):
         K.crosspol_argmin(*ops[5:7], torch.zeros((256, 4), device=cuda), one * 2)
+    with pytest.raises(ValueError, match="blocks of 256"):  # K1's and K4's layouts are fixed
+        K.crosspol_argmin(*ops[5:7], torch.zeros((128, 4), device=cuda), one * 0, block=128)
+    coarse = [torch.as_tensor(a, device=cuda) for a in K.build_coarse_arrays(lut, u, v, 4, 4)[:4]]
+    with pytest.raises(ValueError, match="blocks of 256"):
+        K.group_argmin(*coarse, torch.zeros((128, 4), device=cuda), one * 0, 8, block=128)
+    with pytest.raises(ValueError, match="must not decrease"):
+        K.group_argmin(*coarse[:3], coarse[3].flip(0).contiguous(),
+                       torch.zeros((256, 4), device=cuda), one * 0, 8)
     with pytest.raises(ValueError, match="aligned"):
         K.crosspol_argmin(*ops[5:7], torch.zeros(256 * 4 + 1, device=cuda)[1:].reshape(256, 4),
                           one * 0)

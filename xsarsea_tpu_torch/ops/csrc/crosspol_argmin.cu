@@ -4,39 +4,82 @@
 // _crosspol_kernel). It serves the inversion's unfused tail, where pixels are
 // re-bucketed by the crosspol LUT's own incidence axis: one CUDA block per
 // 256-pixel bucket block, every pixel of a block sharing one crosspol band.
-// The band's LUT row and the halved wind-speed row (Wc floats each, 155 for
-// the sarwing crosspol LUT) are staged in shared memory. Each thread owns one
-// pixel, features (s0_cr, dsig_cr, wco/2, has_co) in one 16-byte load, and
-// runs K2's crosspol loop (xs::crosspol_argmin): j = ((lut - s0) / dsig)^2 +
-// (w/2 - wco/2)^2 * has_co with a true divide, the first minimum by index,
-// output w/2 + w/2 in m/s, 0 when any cost is NaN (padding slots included).
+// Per pixel, features (s0_cr, dsig_cr, wco/2, has_co) in one 16-byte load:
+// j = ((lut - s0) / dsig)^2 + (w/2 - wco/2)^2 * has_co with a correctly
+// rounded quotient, the first minimum by index, output w/2 + w/2 in m/s, 0
+// when any cost is NaN (padding slots included).
 //
-// Bound on the H100: launch and memory, not arithmetic. Per pixel ~155
-// entries x 7 FP32 operations (one a divide) against 16 B in and 4 B out; the
-// row is read from shared memory as a broadcast.
+// Bound on the H100: FP32 instructions at the path's 155 entries (8 counted
+// operations an entry against 16 B in and 4 B out a pixel). The loop is
+// xs::crosspol::argmin (inversion_common.cuh), shared with K2's tail: the
+// divide hoisted to one reciprocal a pixel, NaN through the propagating min,
+// a float4's four costs reduced before one compare and select. Here a block
+// is 64 threads, two warps of 128 pixels each; lane l owns the pixels l, l +
+// 32, l + 64, l + 96 of its warp's 128 (4 a thread, the whole row each: the
+// row is short, no chain split), so one float4 read of the row and of w/2
+// from shared memory feeds sixteen costs. A 32-pixel group whose s0_cr are
+// all NaN (padding) has only NaN costs and gets 0 without a sweep; the loop
+// is compiled per count of live groups (1-4).
 #include "inversion_common.cuh"
 
 namespace {
 
-__global__ void crosspol_argmin_kernel(const float* __restrict__ cr_lut,
-                                       const float* __restrict__ w_half,
-                                       const float* __restrict__ feats,
-                                       const int* __restrict__ band_of_block,
-                                       float* __restrict__ out, int n_cr) {
-  extern __shared__ float smem[];
-  float* s_row = smem;
-  float* s_wh = smem + n_cr;
-  const int b = blockIdx.x;
-  const float* row = cr_lut + static_cast<size_t>(band_of_block[b]) * n_cr;
-  for (int i = threadIdx.x; i < n_cr; i += blockDim.x) {
-    s_row[i] = row[i];
-    s_wh[i] = w_half[i];
-  }
-  __syncthreads();
+constexpr int kPixels = 256;           // pixels per block: CR_BLOCK
+constexpr int kPix = 4;                // pixels a thread
+constexpr int kWarpPixels = 32 * kPix;
+constexpr int kThreads = kPixels / kPix;
 
-  const size_t p = static_cast<size_t>(b) * blockDim.x + threadIdx.x;
-  const float4 f = reinterpret_cast<const float4*>(feats)[p];
-  out[p] = xs::crosspol_argmin(s_row, s_wh, n_cr, f.x, f.y, f.z, f.w);
+// The G live 32-pixel groups (the set bits of live) of a warp's 128 pixels.
+template <int G>
+__device__ __forceinline__ void solve_groups(const float* s_row, const float* s_wh, int n_cr,
+                                             const float4* __restrict__ feats_w, unsigned live,
+                                             float* __restrict__ out_w) {
+  const int lane = threadIdx.x & 31;
+  int grp[G];
+  float4 f[G];
+  float speed[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    grp[k] = __ffs(live) - 1;
+    live &= live - 1;
+    f[k] = feats_w[32 * grp[k] + lane];
+  }
+  xs::crosspol::argmin<G>(s_row, s_wh, n_cr, f, speed);
+#pragma unroll
+  for (int k = 0; k < G; ++k) out_w[32 * grp[k] + lane] = speed[k];
+}
+
+__global__ void __launch_bounds__(kThreads) crosspol_argmin_kernel(
+    const float* __restrict__ cr_lut, const float* __restrict__ w_half,
+    const float* __restrict__ feats, const int* __restrict__ band_of_block,
+    float* __restrict__ out, int n_cr) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  xs::crosspol::stage(smem, cr_lut + static_cast<size_t>(band_of_block[b]) * n_cr, w_half, n_cr,
+                      kThreads);
+  __syncthreads();
+  const float* s_wh = smem + xs::crosspol::row_stride(n_cr);
+
+  const size_t first = static_cast<size_t>(b) * kPixels + warp * kWarpPixels;
+  const float4* feats_w = reinterpret_cast<const float4*>(feats) + first;
+  float* out_w = out + first;
+  unsigned live = 0;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const float s0 = feats_w[32 * k + lane].x;
+    const bool any = __any_sync(0xffffffffu, s0 == s0) != 0;
+    live |= static_cast<unsigned>(any) << k;
+    if (!any) out_w[32 * k + lane] = 0.0f;  // every cost NaN
+  }
+  switch (__popc(live)) {
+    case 1: solve_groups<1>(smem, s_wh, n_cr, feats_w, live, out_w); break;
+    case 2: solve_groups<2>(smem, s_wh, n_cr, feats_w, live, out_w); break;
+    case 3: solve_groups<3>(smem, s_wh, n_cr, feats_w, live, out_w); break;
+    case 4: solve_groups<4>(smem, s_wh, n_cr, feats_w, live, out_w); break;
+    default: break;  // padding only
+  }
 }
 
 }  // namespace
@@ -44,11 +87,12 @@ __global__ void crosspol_argmin_kernel(const float* __restrict__ cr_lut,
 extern "C" int xs_crosspol_argmin(const float* cr_lut, const float* w_half, const float* feats,
                                   const int* band_of_block, float* out, int n_blocks, int block,
                                   int n_cr, void* stream) {
+  if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const size_t smem = 2 * static_cast<size_t>(n_cr) * sizeof(float);
+  const size_t smem = xs::crosspol::smem_bytes(n_cr);
   cudaError_t err = xs::allow_smem(crosspol_argmin_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  crosspol_argmin_kernel<<<n_blocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  crosspol_argmin_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       cr_lut, w_half, feats, band_of_block, out, n_cr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,74 +2,226 @@
 //
 // Replaces xsarsea_tpu/ops/pallas_inversion.py:copol_group_argmin_pallas
 // (body _group_argmin_kernel). One CUDA block per 256-pixel bucket block;
-// every pixel of a block shares one incidence band. The band's coarse grid
-// (about 64 rows x 46 phi columns at the production 0.1 m/s x 1 deg LUT;
-// rows sampled every ~0.8 m/s, columns every ~4 deg) is staged in shared
-// memory with the halved u/v grids, about 35 KB. Each thread owns one pixel:
-// it evaluates the direct-form cost of every coarse entry, keeps the running
-// minimum of the current wind-speed group (16 LUT rows) and, at each group
-// boundary, keeps the group with the strictly lower minimum, so the lowest
-// group wins among equal minima. A pixel with no finite cost gets the last
-// group, as the reference clips its no-hit sentinel.
+// every pixel of a block shares one incidence band. Per pixel: the direct-form
+// cost (xs::copol_cost, K2's op order) over the band's coarse grid (64 rows x
+// 46 phi columns at the production 0.1 m/s x 1 deg LUT; rows sampled every
+// ~0.8 m/s, columns every ~4 deg), the minimum per wind-speed group (row_group,
+// 16 LUT rows a group), and the group with the lowest minimum, the lowest
+// group among equal minima. A NaN cost never wins; a pixel with no cost below
+// +inf gets the last group, as the reference clips its no-hit sentinel.
 //
 // The TPU kernel evaluated an expanded-form cost as one bf16-split MXU
-// matmul; the H100's CUDA cores evaluate the direct form, the same op order
-// as K2 (slab_refine_fused.cu), which is the more accurate candidate.
+// matmul; the H100's CUDA cores evaluate the direct form, which is the more
+// accurate candidate.
 //
-// Bound on the H100: FP32 issue. Per pixel ~3k entries x ~9 FP32 operations
-// plus a compare; the operand comes from shared memory as a broadcast (all
-// threads read the same entry at the same time), pixels' features from one
-// 16-byte load. Device-memory traffic is ~16 B/px in and 4 B/px out.
+// Bound on the H100: FP32 instructions (9 cost operations and a min per
+// entry and pixel against 16 B in and 4 B out a pixel), so the loop is built
+// to execute little else, in the shape of the slab sweep (xs::slab::sweep):
+//  * 256 threads, 8 warps = 2 pixel sets x 4 chains. Lane l of a set's warps
+//    owns the pixels l, l + 32, l + 64, l + 96 of its 128-pixel set (4 a
+//    thread), so one broadcast read of (l, u, v) from shared memory feeds four
+//    cost evaluations and a thread carries four independent chains.
+//  * Chain c takes the groups g = c (mod 4): a group's minimum lives in one
+//    chain, and a chain meets its groups in ascending order (row_group is
+//    non-decreasing), so a strict '<' at each group boundary keeps the lowest
+//    group. The four chains' (minimum, group) merge through shared memory by
+//    (minimum, group).
+//  * Only the group's minimum is needed, not the entry: a float4's four costs
+//    reduce by fminf (FMNMX, which drops a NaN operand exactly as 'if (j <
+//    m) m = j' does) and one more fminf folds them into the running minimum.
+//    No compare and no select per entry; they happen once per group boundary.
+//  * Rows are staged with a stride rounded up to 4 floats (46 -> 48) and read
+//    as float4s with no scalar tail: the LUT plane's padding is NaN, whose
+//    cost is NaN, which fminf drops. The slab sweep cannot do this (there a
+//    NaN poisons the pixel and no finite pad is safe for every s0 and
+//    1/dsig); here a NaN never wins, so the pad is safe.
+//  * A 32-pixel group whose s0 are all NaN (padding slots, or pixels without
+//    copol sigma0) has only NaN costs: its pixels get the last group without a
+//    sweep, a block with no other pixel stops before staging, and the sweep is
+//    compiled per count of live groups (1-4).
+// Shared memory: 3 x 64 x 48 floats of operands, the row groups and 2 x 4 x
+// 256 partials, 45 KB a block at the production LUT.
 #include "inversion_common.cuh"
 
-#include <math_constants.h>
+#include <climits>
 
 namespace {
 
-__global__ void group_argmin_kernel(const float* __restrict__ lut_c,
-                                    const float* __restrict__ u_half,
-                                    const float* __restrict__ v_half,
-                                    const int* __restrict__ row_group,
-                                    const float* __restrict__ feats,
-                                    const int* __restrict__ band_of_block,
-                                    int* __restrict__ out, int n_rows, int n_cols,
-                                    int n_groups) {
-  extern __shared__ float smem[];
-  const int entries = n_rows * n_cols;
-  float* s_lut = smem;
-  float* s_u = smem + entries;
-  float* s_v = smem + 2 * entries;
+constexpr int kPixels = 256;                     // pixels per block: GROUP_BLOCK
+constexpr int kPix = 4;                          // pixels a thread
+constexpr int kChains = 4;                       // group chains per pixel set
+constexpr int kSetPixels = 32 * kPix;            // pixels per set
+constexpr int kSets = kPixels / kSetPixels;
+constexpr int kWarps = kSets * kChains;
+constexpr int kThreads = 32 * kWarps;
+
+__host__ __device__ constexpr int row_stride(int n_cols) { return (n_cols + 3) & ~3; }
+
+size_t smem_bytes(int n_rows, int n_cols) {
+  return (3 * static_cast<size_t>(n_rows) * row_stride(n_cols) + 2 * kChains * kPixels +
+          n_rows) * sizeof(float);
+}
+
+// The block's staged operands: l, u/2, v/2 planes of n_rows x ld floats and
+// the group of each row.
+struct Coarse {
+  const float* l;
+  const float* u;
+  const float* v;
+  const int* row_group;
+  int n_rows;
+  int ld;
+};
+
+// One chain's sweep for the G live 32-pixel groups (the set bits of live) of
+// its pixel set: feats_set points at the set's first pixel, part_best/part_g
+// at the chain's partials of that pixel.
+template <int G>
+__device__ __forceinline__ void sweep_groups(const Coarse& t, int chain,
+                                             const float4* __restrict__ feats_set, unsigned live,
+                                             float* part_best, int* part_g) {
+  const int lane = threadIdx.x & 31;
+  int grp[G];
+  float4 f[G];  // s0, ma/2, mz/2, 1/dsig
+  float gmin[G], best[G];
+  int best_g[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    grp[k] = __ffs(live) - 1;
+    live &= live - 1;
+    f[k] = feats_set[32 * grp[k] + lane];
+    gmin[k] = CUDART_INF_F;
+    best[k] = CUDART_INF_F;
+    best_g[k] = INT_MAX;
+  }
+
+  int cur = -1;  // the group whose minimum gmin holds
+  for (int r = 0; r < t.n_rows; ++r) {
+    const int g = t.row_group[r];
+    if (g % kChains != chain) continue;
+    if (g != cur) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (gmin[k] < best[k]) {
+          best[k] = gmin[k];
+          best_g[k] = cur;
+        }
+        gmin[k] = CUDART_INF_F;
+      }
+      cur = g;
+    }
+    const float* L = t.l + r * t.ld;
+    const float* U = t.u + r * t.ld;
+    const float* V = t.v + r * t.ld;
+    for (int c = 0; c < t.ld; c += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(L + c);
+      const float4 u = *reinterpret_cast<const float4*>(U + c);
+      const float4 v = *reinterpret_cast<const float4*>(V + c);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const float j01 = fminf(xs::copol_cost(l.x, u.x, v.x, f[k].x, f[k].y, f[k].z, f[k].w),
+                                xs::copol_cost(l.y, u.y, v.y, f[k].x, f[k].y, f[k].z, f[k].w));
+        const float j23 = fminf(xs::copol_cost(l.z, u.z, v.z, f[k].x, f[k].y, f[k].z, f[k].w),
+                                xs::copol_cost(l.w, u.w, v.w, f[k].x, f[k].y, f[k].z, f[k].w));
+        gmin[k] = fminf(gmin[k], fminf(j01, j23));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (gmin[k] < best[k]) {  // the chain's last group
+      best[k] = gmin[k];
+      best_g[k] = cur;
+    }
+    part_best[32 * grp[k] + lane] = best[k];
+    part_g[32 * grp[k] + lane] = best_g[k];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) group_argmin_kernel(
+    const float* __restrict__ lut_c, const float* __restrict__ u_half,
+    const float* __restrict__ v_half, const int* __restrict__ row_group,
+    const float* __restrict__ feats, const int* __restrict__ band_of_block,
+    int* __restrict__ out, int n_rows, int n_cols, int n_groups) {
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
-  const float* lut_b = lut_c + static_cast<size_t>(band_of_block[b]) * entries;
-  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
-    s_lut[i] = lut_b[i];
-    s_u[i] = u_half[i];
-    s_v[i] = v_half[i];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float4* feats_b = reinterpret_cast<const float4*>(feats) + static_cast<size_t>(b) * kPixels;
+  int* out_b = out + static_cast<size_t>(b) * kPixels;
+
+  bool live_any = false;  // an s0 that is not NaN
+  for (int p = threadIdx.x; p < kPixels; p += kThreads) {
+    const float s0 = feats_b[p].x;
+    live_any |= s0 == s0;
+  }
+  if (!__syncthreads_or(live_any)) {  // padding only
+    for (int p = threadIdx.x; p < kPixels; p += kThreads) out_b[p] = n_groups - 1;
+    return;
+  }
+
+  const int ld = row_stride(n_cols);
+  const int plane = n_rows * ld;
+  float* s_l = smem;
+  float* s_u = smem + plane;
+  float* s_v = smem + 2 * plane;
+  float* part_best = smem + 3 * plane;
+  int* part_g = reinterpret_cast<int*>(part_best + kChains * kPixels);
+  int* s_rg = part_g + kChains * kPixels;
+  const float* lut_b = lut_c + static_cast<size_t>(band_of_block[b]) * n_rows * n_cols;
+  for (int r = warp; r < n_rows; r += kWarps) {
+    for (int c = lane; c < ld; c += 32) {
+      const bool real = c < n_cols;
+      s_l[r * ld + c] = real ? lut_b[r * n_cols + c] : CUDART_NAN_F;  // a NaN cost never wins
+      s_u[r * ld + c] = real ? u_half[r * n_cols + c] : 0.0f;
+      s_v[r * ld + c] = real ? v_half[r * n_cols + c] : 0.0f;
+    }
+  }
+  for (int r = threadIdx.x; r < n_rows; r += kThreads) s_rg[r] = row_group[r];
+  __syncthreads();
+
+  {
+    const int set = warp / kChains;
+    const int chain = warp % kChains;
+    const float4* feats_set = feats_b + set * kSetPixels;
+    unsigned live = 0;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const float s0 = feats_set[32 * k + lane].x;
+      live |= static_cast<unsigned>(__any_sync(0xffffffffu, s0 == s0)) << k;
+    }
+    const Coarse t{s_l, s_u, s_v, s_rg, n_rows, ld};
+    float* pb = part_best + chain * kPixels + set * kSetPixels;
+    int* pg = part_g + chain * kPixels + set * kSetPixels;
+    switch (__popc(live)) {
+      case 1: sweep_groups<1>(t, chain, feats_set, live, pb, pg); break;
+      case 2: sweep_groups<2>(t, chain, feats_set, live, pb, pg); break;
+      case 3: sweep_groups<3>(t, chain, feats_set, live, pb, pg); break;
+      case 4: sweep_groups<4>(t, chain, feats_set, live, pb, pg); break;
+      default: break;  // no live group in this set
+    }
   }
   __syncthreads();
 
-  const size_t p = static_cast<size_t>(b) * blockDim.x + threadIdx.x;
-  const float4 f = reinterpret_cast<const float4*>(feats)[p];  // s0, ma/2, mz/2, 1/dsig
-  float best_min = CUDART_INF_F;
-  int best_group = n_groups - 1;
-  float group_min = CUDART_INF_F;
-  for (int r = 0; r < n_rows; ++r) {
-    const int base = r * n_cols;
-    for (int c = 0; c < n_cols; ++c) {
-      const float j = xs::copol_cost(s_lut[base + c], s_u[base + c], s_v[base + c], f.x, f.y,
-                                     f.z, f.w);
-      if (j < group_min) group_min = j;  // NaN never wins
-    }
-    const int g = row_group[r];
-    if (r + 1 == n_rows || row_group[r + 1] != g) {
-      if (group_min < best_min) {
-        best_min = group_min;
-        best_group = g;
+  for (int p = threadIdx.x; p < kPixels; p += kThreads) {
+    const float s0 = feats_b[p].x;
+    int group = n_groups - 1;
+    // a warp meets one whole 32-pixel group here (kThreads is a multiple of 32)
+    if (__any_sync(0xffffffffu, s0 == s0)) {  // the group was swept
+      float best = CUDART_INF_F;
+      int best_g = INT_MAX;
+      for (int c = 0; c < kChains; ++c) {
+        const float m = part_best[c * kPixels + p];
+        const int g = part_g[c * kPixels + p];
+        if (m < best || (m == best && g < best_g)) {  // (minimum, group) order
+          best = m;
+          best_g = g;
+        }
       }
-      group_min = CUDART_INF_F;
+      if (best < CUDART_INF_F) group = best_g;
     }
+    out_b[p] = group;
   }
-  out[p] = best_group;
 }
 
 }  // namespace
@@ -82,11 +234,12 @@ extern "C" int xs_group_argmin(const float* lut_c, const float* u_half, const fl
                                const int* row_group, const float* feats,
                                const int* band_of_block, int* out, int n_blocks, int block,
                                int n_rows, int n_cols, int n_groups, void* stream) {
+  if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const size_t smem = 3 * static_cast<size_t>(n_rows) * n_cols * sizeof(float);
+  const size_t smem = smem_bytes(n_rows, n_cols);
   cudaError_t err = xs::allow_smem(group_argmin_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  group_argmin_kernel<<<n_blocks, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  group_argmin_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       lut_c, u_half, v_half, row_group, feats, band_of_block, out, n_rows, n_cols, n_groups);
   return static_cast<int>(cudaGetLastError());
 }

@@ -356,29 +356,200 @@ __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
 
 }  // namespace slab
 
-// Crosspol 1-D argmin over one LUT row (K2 and K4), the reference's
-// _crosspol_kernel: j = ((lut - s0) / dsig)^2 + (w/2 - wco/2)^2 * has_co, a
-// true divide, first minimum by index. Returns the winning wind speed
-// (w/2 + w/2 == w exactly), or 0 when any cost is NaN.
-__device__ __forceinline__ float crosspol_argmin(const float* row, const float* w_half, int n_cr,
-                                                 float s0_cr, float dsig_cr, float wco_half,
-                                                 float has_co) {
-  float best = CUDART_INF_F;
-  int best_k = 0;
-  bool poisoned = false;
-  for (int k = 0; k < n_cr; ++k) {
-    const float d = __fdiv_rn(__fsub_rn(row[k], s0_cr), dsig_cr);
-    const float dw = __fsub_rn(w_half[k], wco_half);
-    const float j = __fadd_rn(__fmul_rn(d, d), __fmul_rn(__fmul_rn(dw, dw), has_co));
-    poisoned |= (j != j);
-    if (j < best) {
-      best = j;
-      best_k = k;
+// The crosspol 1-D argmin over one LUT row, K4's body and K2's tail (the
+// reference's _crosspol_kernel): j = ((lut - s0) / dsig)^2 + (w/2 - wco/2)^2
+// * has_co with a correctly rounded quotient, the first minimum by index, the
+// winning wind speed w/2 + w/2 (== w exactly), 0 when any cost is NaN.
+//
+// The divisor is one value per pixel, so the divide is hoisted: r = RN(1 /
+// dsig) once per pixel, then per entry q0 = RN(d * r) and one residual step
+// e = fma(-q0, dsig, d), q = fma(e, r, q0), the residual exact (Markstein's
+// correction); explicit __fmaf_rn, which --fmad=false leaves alone. That
+// equals __fdiv_rn(d, dsig) whenever no intermediate overflows or underflows
+// (held on all 2^46 pairs of significands by
+// scripts/check_crosspol_quotient.py), which the pixel's features decide
+// (hoistable()): dsig within
+// [2^-20, 2^20] and |s0| >= 2^-10, so that a nonzero d = l - s0 is at least
+// 2^-34 in magnitude (two floats of magnitude >= 2^-11 differ by a multiple
+// of 2^-34, and a smaller l leaves |d| >= |s0| / 2), q0 at least 2^-54 and
+// every residual a multiple of 2^-120: all normal numbers. On the large side
+// nothing is checked per entry: an infinite d or an overflowing q0 turns the
+// hoisted quotient into NaN (inf - inf in the residual), the pixel's minimum
+// is then NaN, and a pixel whose features hold no NaN but whose minimum does
+// is solved again with the true divide. NaN features give NaN either way.
+// xs_crosspol_quotient (crosspol_quotient.cu) exposes the quotient for the
+// tests that hold it against the true divide, bit for bit.
+//
+// The loop has the slab sweep's shape: the row and w/2 come from shared memory
+// as float4s (both 16-byte aligned, rows padded to a multiple of 4 floats), G
+// pixels a thread share each read, the running minimum is the NaN-propagating
+// min, so a NaN cost poisons it for good and needs no test per entry, a
+// float4's four costs are reduced before one strict compare and one index
+// select, and the winning four are rescanned for the first entry that holds
+// the minimum. The stride's padding is never evaluated (a NaN pad would
+// poison, and no finite or infinite pad is safe for every dsig): scalar tail.
+namespace crosspol {
+
+constexpr float kDsigLo = 0x1p-20f;    // |dsig| window of the hoisted quotient
+constexpr float kDsigHi = 0x1p20f;
+constexpr float kS0Lo = 0x1p-10f;      // least |s0|: bounds a nonzero l - s0 from below
+constexpr float kDividendLo = 0x1p-34f;
+
+__host__ __device__ constexpr int row_stride(int n_cr) { return (n_cr + 3) & ~3; }
+
+// Shared memory of a block: the LUT row and the halved wind speeds.
+inline size_t smem_bytes(int n_cr) {
+  return 2 * static_cast<size_t>(row_stride(n_cr)) * sizeof(float);
+}
+
+// RN(a / b) from r = RN(1 / b), for operands inside the windows above.
+__device__ __forceinline__ float hoisted_quotient(float a, float b, float r) {
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+
+// The quotient as the argmin computes it, for one (a, b): hoisted inside the
+// windows, the true divide outside them or when the hoisted one gives NaN. A
+// dividend of -0, which l - s0 never is under round-to-nearest, takes the
+// true divide too: the hoisted route gives +0 for it under a positive b.
+__device__ __forceinline__ float quotient(float a, float b, bool* hoisted) {
+  const float mb = fabsf(b), ma = fabsf(a);
+  *hoisted = false;
+  if (!(mb >= kDsigLo && mb <= kDsigHi) || (ma < kDividendLo && __float_as_uint(a) != 0u))
+    return __fdiv_rn(a, b);
+  const float q = hoisted_quotient(a, b, __frcp_rn(b));
+  if (q != q) return __fdiv_rn(a, b);
+  *hoisted = true;
+  return q;
+}
+
+// Whether a pixel's quotients may be hoisted. NaN features pass: they give
+// NaN costs with either quotient.
+__device__ __forceinline__ bool hoistable(float s0, float dsig) {
+  const float md = fabsf(dsig);
+  return !(fabsf(s0) < kS0Lo) && !(md < kDsigLo) && !(md > kDsigHi);
+}
+
+// The G pixels one thread solves: features (s0_cr, dsig_cr, wco/2, has_co)
+// and running minima, as slab::Chains keeps them. idx is the first entry of
+// the float4 (or the tail entry) where the minimum was first reached, -1
+// while no cost has been below +inf; after resolve() the entry itself.
+template <int G, bool kHoisted>
+struct Pixels {
+  float s0[G], dsig[G], rcp[G], wco[G], has[G];
+  float best[G];
+  int idx[G];
+
+  __device__ __forceinline__ void load(const float4 (&f)[G]) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      s0[k] = f[k].x;
+      dsig[k] = f[k].y;
+      rcp[k] = kHoisted ? __frcp_rn(f[k].y) : 0.0f;
+      wco[k] = f[k].z;
+      has[k] = f[k].w;
+      best[k] = CUDART_INF_F;
+      idx[k] = -1;
     }
   }
-  const float wh = w_half[best_k];
-  return poisoned ? 0.0f : __fadd_rn(wh, wh);
+
+  __device__ __forceinline__ float cost(int k, float l, float wh) const {
+    const float d = __fsub_rn(l, s0[k]);
+    const float q = kHoisted ? hoisted_quotient(d, dsig[k], rcp[k]) : __fdiv_rn(d, dsig[k]);
+    const float dw = __fsub_rn(wh, wco[k]);
+    return __fadd_rn(__fmul_rn(q, q), __fmul_rn(__fmul_rn(dw, dw), has[k]));
+  }
+
+  // The strict '<' keeps the first minimum; NaN propagates into best.
+  __device__ __forceinline__ void keep(int k, float j, int e) {
+    const bool better = j < best[k];
+    best[k] = min_nan(best[k], j);
+    idx[k] = better ? e : idx[k];
+  }
+
+  __device__ __forceinline__ void sweep(const float* row, const float* w_half, int n_cr) {
+    int c = 0;
+    for (; c + 4 <= n_cr; c += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(row + c);
+      const float4 w = *reinterpret_cast<const float4*>(w_half + c);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const float j01 = min_nan(cost(k, l.x, w.x), cost(k, l.y, w.y));
+        const float j23 = min_nan(cost(k, l.z, w.z), cost(k, l.w, w.w));
+        keep(k, min_nan(j01, j23), c);
+      }
+    }
+    for (; c < n_cr; ++c) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) keep(k, cost(k, row[c], w_half[c]), c);
+    }
+    // the first entry at or after idx, within its four, that holds the minimum
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (idx[k] < 0 || best[k] != best[k]) continue;
+      const int end = min(idx[k] + 4, n_cr);
+      for (int e = idx[k]; e < end; ++e) {
+        if (cost(k, row[e], w_half[e]) == best[k]) {
+          idx[k] = e;
+          break;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool poisoned(int k) const { return best[k] != best[k]; }
+
+  // No cost below +inf leaves the first entry, as argmin over equal costs does.
+  __device__ __forceinline__ float speed(int k, const float* w_half) const {
+    const float wh = w_half[max(idx[k], 0)];
+    return poisoned(k) ? 0.0f : __fadd_rn(wh, wh);
+  }
+};
+
+// Solve G pixels over the row (n_cr entries, in shared memory with w_half):
+// out[k] is pixel k's winning speed. Pixels whose features allow it share the
+// hoisted loop; one pixel outside the windows, or one whose minimum came out
+// NaN from features without a NaN, sends the thread's pixels through the
+// loop with the true divide.
+template <int G>
+__device__ __forceinline__ void argmin(const float* row, const float* w_half, int n_cr,
+                                       const float4 (&f)[G], float (&out)[G]) {
+  bool hoist = true;
+#pragma unroll
+  for (int k = 0; k < G; ++k) hoist &= hoistable(f[k].x, f[k].y);
+  if (hoist) {
+    Pixels<G, true> p;
+    p.load(f);
+    p.sweep(row, w_half, n_cr);
+    bool again = false;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const bool clean = f[k].x == f[k].x && f[k].y == f[k].y && f[k].z == f[k].z &&
+                         f[k].w == f[k].w;
+      again |= p.poisoned(k) && clean;
+      out[k] = p.speed(k, w_half);
+    }
+    if (!again) return;
+  }
+  Pixels<G, false> p;
+  p.load(f);
+  p.sweep(row, w_half, n_cr);
+#pragma unroll
+  for (int k = 0; k < G; ++k) out[k] = p.speed(k, w_half);
 }
+
+// Copy the band's LUT row and w_half into shared memory (s_row, then s_wh at
+// row_stride(n_cr)); the caller synchronizes.
+__device__ __forceinline__ void stage(float* smem, const float* __restrict__ row,
+                                      const float* __restrict__ w_half, int n_cr, int n_threads) {
+  float* s_wh = smem + row_stride(n_cr);
+  for (int i = threadIdx.x; i < n_cr; i += n_threads) {
+    smem[i] = row[i];
+    s_wh[i] = w_half[i];
+  }
+}
+
+}  // namespace crosspol
 
 // Dynamic shared memory above the 48 KB default needs an explicit opt-in.
 template <typename Kernel>

@@ -14,18 +14,23 @@
 // NaN cost anywhere (a NaN s0 included) poisons the pixel to (wspd 0, phi 0),
 // as the reference's NaN-propagating min does. Then thread t takes pixel t:
 // the winner decodes to wspd = w_pad[row] and phi = co_phir[col], and the
-// crosspol cost ((lut - s0cr) / dsig_cr)^2 + (w/2 - wco/2)^2 * has_co (a true
-// divide, as _crosspol_kernel; xs::crosspol_argmin, shared with K4) is
-// minimized over the band's crosspol row, first minimum, emitting the winning
-// wspd in m/s. It runs for every pixel whose crosspol sigma0 is not NaN, a
-// pixel of a group that was not swept included (dual-pol data can miss copol
-// alone); with a NaN crosspol sigma0 every crosspol cost is NaN and it gives 0.
+// crosspol cost ((lut - s0cr) / dsig_cr)^2 + (w/2 - wco/2)^2 * has_co (a
+// correctly rounded quotient, as _crosspol_kernel) is minimized over the
+// band's crosspol row, first minimum, emitting the winning wspd in m/s. That
+// tail is xs::crosspol::argmin, K4's loop, one pixel a thread: once the
+// sweep's partial minima are merged, the band's crosspol row and w/2 (771
+// floats each, 6 KB) are staged into the sweep's shared memory and read from
+// there as float4s, the divide hoisted to one reciprocal a pixel. It runs
+// for every pixel whose crosspol sigma0 is not NaN, a pixel of a group that
+// was not swept included (dual-pol data can miss copol alone); with a NaN
+// crosspol sigma0 every crosspol cost is NaN and it gives 0.
 //
 // Bound on the H100: FP32 issue. Per pixel 48 x 181 = 8,688 entries x 10
-// counted FP32 operations (see slab_refine.cu), then ~800 crosspol entries.
-// The crosspol row comes through the read-only cache, the same address for
-// every thread of a warp. Device-memory traffic is ~32 B/px in and 16 B/px out.
+// counted FP32 operations (see slab_refine.cu), then 771 crosspol entries x 8.
+// Device-memory traffic is ~32 B/px in and 16 B/px out.
 #include "inversion_common.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -65,12 +70,20 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
 
   const float* f = feats_b + static_cast<size_t>(t) * 8;
   float wspd_cr = 0.0f;
-  if (has_cr && f[4] == f[4]) {
-    const float s0 = f[0];
-    const float has_co = (s0 != s0) ? 0.0f : 1.0f;
-    const float wco_half = __fmul_rn(hit ? __fmul_rn(wspd_co, 0.5f) : 0.0f, has_co);
-    wspd_cr = xs::crosspol_argmin(cr_lut + static_cast<size_t>(band) * n_cr, cr_whalf, n_cr,
-                                  f[4], f[5], wco_half, has_co);
+  if (has_cr) {
+    __syncthreads();  // every thread has read the sweep's partial minima
+    xs::crosspol::stage(smem, cr_lut + static_cast<size_t>(band) * n_cr, cr_whalf, n_cr,
+                        kThreads);
+    __syncthreads();
+    if (f[4] == f[4]) {
+      const float s0 = f[0];
+      const float has_co = (s0 != s0) ? 0.0f : 1.0f;
+      const float wco_half = __fmul_rn(hit ? __fmul_rn(wspd_co, 0.5f) : 0.0f, has_co);
+      const float4 fc[1] = {make_float4(f[4], f[5], wco_half, has_co)};
+      float speed[1];
+      xs::crosspol::argmin<1>(smem, smem + xs::crosspol::row_stride(n_cr), n_cr, fc, speed);
+      wspd_cr = speed[0];
+    }
   }
   out_b[t] = wspd_co;
   out_b[kPixels + t] = phi;
@@ -89,7 +102,8 @@ extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
                                     int n_cr, int has_cr, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const size_t smem = xs::slab::smem_bytes(n_phi);
+  size_t smem = xs::slab::smem_bytes(n_phi);
+  if (has_cr) smem = std::max(smem, xs::crosspol::smem_bytes(n_cr));  // the staged row
   cudaError_t err = xs::allow_smem(slab_refine_fused_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   slab_refine_fused_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -5,7 +5,9 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
 * K1 :func:`group_argmin` replaces ``copol_group_argmin_pallas``: per
   256-pixel block sharing one incidence band, the direct-form cost over a
   coarse (~0.8 m/s x 4 deg) grid, the minimum per wind-speed group
-  (``WGROUP`` LUT rows) and the first-minimum group per pixel.
+  (``WGROUP`` LUT rows) and the first-minimum group per pixel. The kernel
+  deals the groups to four chains a pixel and merges them by (minimum,
+  group).
 * K2 :func:`slab_refine_fused` replaces ``slab_refine_fused_pallas``: per
   128-pixel block sharing one (band, group), the direct-form cost over a
   ``SLAB_ROWS`` x all-phi LUT slab with numpy's first-minimum rule in
@@ -17,7 +19,10 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   crosspol LUT has its own incidence axis.
 * K4 :func:`crosspol_argmin` replaces ``crosspol_argmin_pallas``: per
   256-pixel block sharing one crosspol incidence band, K2's crosspol 1-D
-  argmin over the band's row.
+  argmin over the band's row. On the card its quotient is hoisted (one
+  reciprocal a pixel, a residual correction an entry);
+  :func:`crosspol_quotient` exposes that quotient so that it can be held
+  against the true divide.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use and bound with
@@ -65,6 +70,8 @@ __all__ = [
     "build_direct_arrays",
     "build_kernels",
     "crosspol_argmin",
+    "crosspol_quotient",
+    "crosspol_quotient_sweep",
     "group_argmin",
     "launch_counts",
     "reset_launch_counts",
@@ -83,9 +90,11 @@ _NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # K5 and K6 (ops/experiment_kernels.py) build into the same library
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
-            "crosspol_argmin.cu", "slab_forms.cu", "group_argmin_variants.cu")
+            "crosspol_argmin.cu", "crosspol_quotient.cu", "slab_forms.cu",
+            "group_argmin_variants.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "--threads", "0")  # the sources compile side by side
 
 
 def _build_dir():
@@ -361,6 +370,10 @@ def _load():
             lib.xs_slab_refine.restype = i
             lib.xs_crosspol_argmin.argtypes = [p] * 5 + [i] * 3 + [p]
             lib.xs_crosspol_argmin.restype = i
+            lib.xs_crosspol_quotient.argtypes = [p] * 4 + [i, p]
+            lib.xs_crosspol_quotient.restype = i
+            lib.xs_crosspol_quotient_sweep.argtypes = [ctypes.c_uint, ctypes.c_uint, p, p, p]
+            lib.xs_crosspol_quotient_sweep.restype = i
             lib.xs_slab_forms.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
             lib.xs_slab_forms.restype = i
             lib.xs_group_argmin_variant.argtypes = [p] * 4 + [i] * 4 + [p]
@@ -392,12 +405,18 @@ def _cuda_args(device, named):
         _require(t, name, dtype, shape)
 
 
-def _in_range(t, lo, hi, name):
-    """Indices the kernel dereferences must lie in [lo, hi) (one sync)."""
+def _in_range(t, lo, hi, name, ascending=False):
+    """Indices the kernel dereferences must lie in [lo, hi), and not
+    decrease along ``t`` with ``ascending`` (one sync)."""
     if t.numel():
-        mn, mx = (int(x) for x in torch.aminmax(t))
+        stats = list(torch.aminmax(t))
+        if ascending and t.numel() > 1:
+            stats.append(torch.diff(t).amin())
+        mn, mx, *step = (int(x) for x in torch.stack(stats).tolist())
         if mn < lo or mx >= hi:
             raise ValueError(f"{name} values [{mn}, {mx}] outside [{lo}, {hi})")
+        if step and step[0] < 0:
+            raise ValueError(f"{name} must not decrease")
 
 
 # ------------------------------------------------------------------ wrappers
@@ -410,7 +429,10 @@ def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_group
     from :func:`build_coarse_arrays`; feats (n_blocks*block, 4) f32 rows
     (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding slots;
     band_of_block (n_blocks,) band per block. Returns (n_blocks, block)
-    i32; pixels with no finite cost get ``n_groups - 1``.
+    i32; pixels with no finite cost get ``n_groups - 1``. The kernel takes
+    blocks of ``GROUP_BLOCK`` pixels and a non-decreasing ``row_group``
+    (each of its chains meets its groups in ascending order); the plain
+    version takes any.
     """
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
@@ -427,10 +449,12 @@ def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_group
         "row_group": (row_group, torch.int32, (n_rows,)),
         "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "band_of_block": (band, torch.int32, None)})
-    if feats.data_ptr() % 16 or not 0 < block <= 1024:
-        raise ValueError("group_argmin: feats must be 16-byte aligned, block in (0, 1024]")
+    if block != GROUP_BLOCK:
+        raise ValueError(f"group_argmin: the kernel takes blocks of {GROUP_BLOCK} pixels")
+    if feats.data_ptr() % 16:
+        raise ValueError("group_argmin: feats must be 16-byte aligned")
     _in_range(band, 0, lut_c.shape[0], "band_of_block")
-    _in_range(row_group, 0, n_groups, "row_group")
+    _in_range(row_group, 0, n_groups, "row_group", ascending=True)
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
@@ -548,7 +572,8 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
     (n_blocks*block, 4) f32 rows (s0_cr_db, dsig_cr, wco/2, has_co) with
     wco/2 = 0 where has_co = 0, NaN rows for padding; band_of_block
     (n_blocks,) crosspol band per block. Returns (n_blocks, block) f32: the
-    first-minimum wind speed in m/s, 0 where any cost is NaN.
+    first-minimum wind speed in m/s, 0 where any cost is NaN. The kernel
+    takes blocks of ``CR_BLOCK`` pixels; the plain version takes any.
     """
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
@@ -562,8 +587,10 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
         "w_half": (w_half, torch.float32, (n_cr,)),
         "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "band_of_block": (band, torch.int32, None)})
-    if feats.data_ptr() % 16 or not 0 < block <= 1024:
-        raise ValueError("crosspol_argmin: feats must be 16-byte aligned, block in (0, 1024]")
+    if block != CR_BLOCK:
+        raise ValueError(f"crosspol_argmin: the kernel takes blocks of {CR_BLOCK} pixels")
+    if feats.data_ptr() % 16:
+        raise ValueError("crosspol_argmin: feats must be 16-byte aligned")
     _in_range(band, 0, n_inc, "band_of_block")
     out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
     lib = _load()
@@ -575,6 +602,56 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
     _check(lib, rc, "crosspol_argmin")
     _launches["crosspol_argmin"] += 1
     return out
+
+
+def crosspol_quotient(a, b):
+    """The quotient ``a / b`` as the crosspol argmin's kernels compute it
+    (``xs::crosspol::quotient``), elementwise over two float32 tensors of
+    one shape: the hoisted route (a correctly rounded reciprocal of ``b``,
+    one product and one residual step by two explicit fused multiply-adds)
+    where ``b`` and ``a`` lie inside its windows, the true divide elsewhere.
+    Returns ``(q, hoisted)``, ``hoisted`` a bool tensor of the elements
+    that took the hoisted route.
+    It is there to be held against the true divide, which is what runs for
+    CPU tensors (``hoisted`` all False); it is on no path of the inversion
+    and counts no launch.
+    """
+    if a.shape != b.shape:
+        raise ValueError(f"crosspol_quotient: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return a / b, torch.zeros(a.shape, dtype=torch.bool)
+    if a.device.type != "cuda":
+        raise ValueError(f"crosspol_quotient: unsupported device {a.device}")
+    _cuda_args(a.device, {"a": (a, torch.float32, None), "b": (b, torch.float32, None)})
+    out = torch.empty_like(a)
+    hoisted = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    lib = _load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_crosspol_quotient(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      hoisted.data_ptr(), a.numel(), stream)
+    _check(lib, rc, "crosspol_quotient")
+    return out, hoisted.to(torch.bool)
+
+
+def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
+    """The hoisted quotient against the true divide on every dividend
+    significand (2**23 values in [1, 2)) for the divisors ``1 + i * 2**-23``,
+    ``b_first <= i < b_first + b_count``, on the card. Returns ``(differing
+    pairs, examples)``, examples a list of up to 16 ``(dividend, divisor)``
+    float pairs."""
+    dev = torch.device(device)
+    found = torch.zeros(2, dtype=torch.int64, device=dev)
+    examples = torch.zeros(32, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_crosspol_quotient_sweep(b_first, b_count, found.data_ptr(),
+                                            examples.data_ptr(), stream)
+    _check(lib, rc, "crosspol_quotient_sweep")
+    n_bad, n_examples = (int(x) for x in found.tolist())
+    pairs = examples.view(torch.float32).reshape(16, 2)[:min(n_examples, 16)].tolist()
+    return n_bad, [tuple(pair) for pair in pairs]
 
 
 KERNELS = {"group_argmin": group_argmin, "slab_refine_fused": slab_refine_fused,
