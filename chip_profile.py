@@ -19,11 +19,18 @@ needs a CUDA device and ``nvcc``, and imports nothing of JAX. On the
    of the fused winner above the plane's minimum;
 6. steps 2-4 again for the unfused tail, on ``chip_smoke.py``'s phase-7
    pair (CMOD7 high-res with the sarwing crosspol LUT on its own
-   incidence axis).
+   incidence axis);
+7. one profiled call of ``chip_smoke.py``'s phase-9 steps 1-2 (scene
+   preparation on DimArrays over host arrays, then ``invert_from_model``
+   through the xarray bridge with a per-pixel ``dsig_cr`` array) on its
+   2,048 x 4,096 scene: device busy share, device time per kernel name and
+   the host operations with the most self time (where the host waits: the
+   copies to and from the card, the piece loop).
 
 With ``--out DIR`` it writes the profiler's tables to
-``DIR/profile_table.txt`` and ``DIR/profile_table_unfused.txt`` and the
-summary to ``DIR/chip_profile.json``.
+``DIR/profile_table.txt``, ``DIR/profile_table_unfused.txt`` and
+``DIR/profile_table_scene_prep.txt`` and the summary to
+``DIR/chip_profile.json``.
 The last line of its output is the summary as JSON.
 """
 
@@ -40,7 +47,8 @@ from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import cost_gaps, log, make_scene, unfused_pair
+from chip_smoke import (cost_gaps, invert_labelled, log, make_scene, prep_scene, prepare_scene,
+                        unfused_pair)
 
 MODELS = ("gmf_cmod5n", "gmf_s1_v2")
 
@@ -82,10 +90,12 @@ def profile_call(torch, once, out_dir, table_name):
         (out_dir / table_name).write_text(
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_sum_ms": sum(per_name.values()) / 1e3,
             "busy_share": busy_us / wall_us if dev else None,
-            "kernels_ms": {name[:120]: us / 1e3 for name, us in top[:12]}}
+            "kernels_ms": {name[:120]: us / 1e3 for name, us in top[:12]},
+            "host_self_ms": {a.key[:80]: a.self_cpu_time_total / 1e3 for a in host[:10]}}
 
 
 def compare(torch, tables, inc, s0_co_db, s0_cr_db, dsig_cr, anc):
@@ -195,9 +205,25 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
                       s0_cr_db_u[:n_cmp], sc["dsig_cr"][:n_cmp], sc["anc"][:n_cmp])
     log(f"unfused tail: fused vs exact, bench scene first {n_cmp} px: {json.dumps(bench_u)}")
 
+    # scene preparation and the inversion through the xarray bridge (phase 9, steps 1-2)
+    ds, _ = prep_scene(torch, get_model, 2048, 4096, 0)
+    seconds = {}
+
+    def prep_once():
+        winds = invert_labelled(ds, prepare_scene(torch, ds, seconds))
+        torch.cuda.synchronize()
+        return winds
+
+    prep_once()
+    prof_p = profile_call(torch, prep_once, out_dir, "profile_table_scene_prep.txt")
+    prof_p["step_seconds"] = dict(seconds)
+    log(f"scene preparation + invert_from_model ({ds['inc'].size} px, host arrays in and out): "
+        f"{json.dumps(prof_p)}")
+
     summary = {"card": card, "profile": prof, "rate": rate, "bench_parity": bench,
                "off_gmf_parity": off,
-               "unfused": {"profile": prof_u, "rate": rate_u, "bench_parity": bench_u}}
+               "unfused": {"profile": prof_u, "rate": rate_u, "bench_parity": bench_u},
+               "scene_prep": prof_p}
     if out_dir is not None:
         (out_dir / "chip_profile.json").write_text(json.dumps(summary, indent=1))
     log(json.dumps(summary))

@@ -43,9 +43,26 @@ it finishes; any failure exits non-zero:
    be bit-equal to its plain version on the driver's arguments, and the
    direct form (one pixel a thread, the loop K2 and K3 had before their
    redesign) bit-equal to K3, whose time on the same arguments is printed
-   beside it.
+   beside it;
+9. scene preparation around the inversion, on a labelled scene of 2,048
+   lines x 4,096 samples built in memory from ``--seed`` (incidence rising
+   along the sample axis over 18-47 deg, NESZ rising with incidence with a
+   few NaNs, a NaN land patch in copol sigma0, ECMWF speed and meteorological
+   direction, a heading): ``dir_meteo_to_sample`` into a complex ancillary
+   wind, ``nesz_flattening``, ``get_dsig("gmf_s1_v2", ...)`` and
+   ``sigma0_detrend`` with ``gmf_cmod5n`` on DimArrays with
+   ``device="cuda"``; then dual-pol ``invert_from_model`` with that per-pixel
+   ``dsig_cr`` array through the xarray bridge, on inputs of a small
+   DataArray-like class defined here, which must launch K1 and K2, return
+   that class with ``("line", "sample")`` dims and ``model``/``comment``
+   attrs, give NaN copol and finite dual-pol wind over land and a dual-pol
+   speed within 1.0 m/s RMS of the true wind; then ``nesz_flattening``,
+   ``get_dsig`` and ``sigma0_detrend`` on the card against ``device="cpu"``
+   in float64 on a 256-line strip (rtol 1e-9, 1e-12 and 1e-11), the float32
+   line fit's deviation from float64, and ``sigma0_detrend`` on a chunked
+   sigma0, bit-equal to the eager result. Each step prints its seconds.
 
-``python3 chip_smoke.py --through N`` (N from 3 to 7) stops after phase N,
+``python3 chip_smoke.py --through N`` (N from 3 to 8) stops after phase N,
 for a quicker look at the phases before it while a kernel is being worked
 on; it prints neither of the two result lines below, which only a whole run
 earns.
@@ -611,7 +628,254 @@ def phase8(torch, K, report):
             f"bound {variant_bound[0]:.4g} ms ({variant_bound[1]})")
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
+# ------------------------------------------------- phase 9: scene preparation
+
+PREP_MODELS = ("gmf_cmod5n", "gmf_s1_v2")
+PREP_LAND = (slice(500, 600), slice(700, 900))  # NaN copol sigma0: a land patch
+# card against device="cpu" in float64: the line fit sums in another order;
+# the others are elementwise (the GMF's exp, pow and tanh differ in the last bits)
+PREP_RTOL = {"nesz_flattening": 1e-9, "get_dsig": 1e-12, "sigma0_detrend": 1e-11}
+PREP_RTOL_F32 = 1e-3  # the float32 line fit against float64 (cancellation in its denominator)
+
+
+class LabelledArray:
+    """A minimal stand-in for ``xarray.DataArray`` (dims, coords, attrs, name,
+    ``values``, ``data``; the constructor's contract), for driving the xarray
+    bridge where xarray is not installed."""
+
+    def __init__(self, data, coords=None, dims=None, name=None, attrs=None):
+        self.data = data if hasattr(data, "chunks") else np.asarray(data)
+        self.dims = tuple(dims) if dims is not None else \
+            tuple(f"dim_{i}" for i in range(self.data.ndim))
+        self.coords = dict(coords or {})
+        self.attrs = dict(attrs or {})
+        self.name = name
+
+    @property
+    def values(self):
+        return np.asarray(self.data[0:self.data.shape[0]])
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+
+class ChunkedRows:
+    """A chunked duck array over an in-memory one: first-axis slicing only,
+    the largest single request recorded."""
+
+    def __init__(self, arr):
+        self._arr = arr
+        self.shape, self.ndim, self.dtype = arr.shape, arr.ndim, arr.dtype
+        self.chunks = ((1,) * arr.shape[0],) + tuple((s,) for s in arr.shape[1:])
+        self.max_request = 0
+
+    def __getitem__(self, idx):
+        if not isinstance(idx, slice) or idx.step not in (None, 1):
+            raise IndexError("first-axis slicing only")
+        block = self._arr[idx]
+        self.max_request = max(self.max_request, block.size)
+        return block
+
+
+def prep_scene(torch, get_model, ny, nx, seed):
+    """A labelled dual-pol scene as an OWI file holds one, as DimArrays over
+    host float64 arrays, and its true wind speed. sigma0 is forward-modelled
+    from the true wind on the card with 3% multiplicative noise."""
+    from xsarsea_tpu_torch import DimArray, dir_meteo_to_sample
+
+    rng = np.random.default_rng(seed)
+    inc = np.repeat(np.linspace(18.0, 47.0, nx)[None, :], ny, axis=0)
+    speed = rng.uniform(3.0, 22.0, (ny, nx))
+    # over land only the crosspol solves, and the dual-pol merge takes the
+    # (NaN) copol wind wherever a speed is under 5 m/s: keep the patch above it
+    speed[PREP_LAND] = rng.uniform(8.0, 22.0, speed[PREP_LAND].shape)
+    wdir = rng.uniform(0.0, 360.0, (ny, nx))  # meteorological convention
+    heading = np.full((ny, nx), 347.0)
+    phi = np.abs(np.rad2deg(dir_meteo_to_sample(wdir, heading)))
+    dev = [torch.as_tensor(a, device="cuda") for a in (inc, speed, phi)]
+    nrcs = get_model(PREP_MODELS[0])(*dev, broadcast=True).cpu().numpy()
+    nrcs_cr = get_model(PREP_MODELS[1])(dev[0], dev[1], broadcast=True).cpu().numpy()
+    nrcs *= rng.uniform(0.97, 1.03, nrcs.shape)
+    nrcs_cr *= rng.uniform(0.97, 1.03, nrcs.shape)
+    nrcs[PREP_LAND] = np.nan
+    nesz_cr = 10.0 ** ((-31.0 + 0.12 * (inc - 30.0) + rng.normal(0, 0.15, inc.shape)) / 10.0)
+    nesz_cr[rng.integers(0, ny, 64), rng.integers(0, nx, 64)] = np.nan
+    fields = dict(inc=inc, nrcs=nrcs, nrcs_cr=nrcs_cr, nesz_cr=nesz_cr, heading=heading,
+                  ecmwf_speed=np.clip(speed + rng.normal(0, 1.0, speed.shape), 0.3, None),
+                  ecmwf_dir=wdir + rng.normal(0, 10.0, speed.shape))
+    coords = {"line": np.arange(ny), "sample": np.arange(nx)}
+    return {k: DimArray(v, dims=("line", "sample"), coords=coords, name=k)
+            for k, v in fields.items()}, speed
+
+
+def prepare_scene(torch, ds, seconds):
+    """Phase 9, step 1: the ancillary wind in the antenna convention (on the
+    card, from DimArrays moved there), flattened NESZ, ``dsig_cr`` and
+    detrended sigma0, each with ``device="cuda"`` on DimArrays over host
+    arrays. Adds each step's seconds to ``seconds``."""
+    from xsarsea_tpu_torch import dir_meteo_to_sample, sigma0_detrend
+    from xsarsea_tpu_torch.windspeed import get_dsig, nesz_flattening
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    def ancillary():
+        direction = dir_meteo_to_sample(ds["ecmwf_dir"].to("cuda"), ds["heading"].to("cuda"))
+        wind = torch.polar(ds["ecmwf_speed"].to("cuda").data, direction.data)
+        return direction.copy(data=wind).numpy()
+
+    anc = timed("dir_meteo_to_sample + polar", ancillary)
+    nesz_flat = timed("nesz_flattening", lambda: nesz_flattening(ds["nesz_cr"], ds["inc"],
+                                                                device="cuda"))
+    dsig_cr = timed("get_dsig", lambda: get_dsig(PREP_MODELS[1], ds["inc"], ds["nrcs_cr"],
+                                                 nesz_flat, device="cuda"))
+    detrended = timed("sigma0_detrend", lambda: sigma0_detrend(
+        ds["nrcs"], ds["inc"], model=PREP_MODELS[0], device="cuda"))
+    return dict(anc=anc, nesz_flat=nesz_flat, dsig_cr=dsig_cr, detrended=detrended)
+
+
+def invert_labelled(ds, prep):
+    """Phase 9, step 2: dual-pol ``invert_from_model`` on DataArray-like
+    inputs, the per-pixel ``dsig_cr`` array among them."""
+    from xsarsea_tpu_torch.windspeed import invert_from_model
+
+    def labelled(arr):
+        return LabelledArray(arr.data, coords=arr.coords, dims=arr.dims, name=arr.name,
+                             attrs=arr.attrs)
+
+    return invert_from_model(
+        labelled(ds["inc"]), labelled(ds["nrcs"]), labelled(ds["nrcs_cr"]),
+        ancillary_wind=labelled(prep["anc"]), dsig_cr=labelled(prep["dsig_cr"]),
+        model=PREP_MODELS, device="cuda")
+
+
+def max_rel_dev(got, ref):
+    """Largest relative deviation of ``got`` from ``ref``; NaN masks must agree."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.array_equal(np.isnan(got), np.isnan(ref)):
+        return float("inf")
+    ok = ~np.isnan(ref)
+    return float(np.max(np.abs(got[ok] - ref[ok]) / np.abs(ref[ok])))
+
+
+def phase9(torch, K, report, card, seed, ny=2048, nx=4096, strip=256):
+    """Scene preparation around the inversion, at full width."""
+    from xsarsea_tpu_torch import DimArray, sigma0_detrend
+    from xsarsea_tpu_torch.models import get_model
+    from xsarsea_tpu_torch.windspeed import get_dsig, nesz_flattening
+
+    t0 = time.perf_counter()
+    ds, truth = prep_scene(torch, get_model, ny, nx, seed)
+    n = ny * nx
+    log(f"phase 9 scene: {ny} x {nx} px ({n} px), seed {seed}, in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # steps 1-2: the path, with launch counts around the inversion
+    first, seconds = {}, {}
+    prepare_scene(torch, ds, first)  # the process's first calls: allocator and GMF warm-up
+    prep = prepare_scene(torch, ds, seconds)
+    K.reset_launch_counts()
+    with captured_calls(K) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wind_co, wind_dual = invert_labelled(ds, prep)
+        torch.cuda.synchronize()
+        seconds["invert_from_model"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    for name in ("group_argmin", "slab_refine_fused"):
+        if launches[name] == 0 or name not in calls:
+            raise SystemExit(f"phase 9: kernel {name} was not launched by the inversion")
+        report[name]["launches"] += launches[name]
+    if launches["slab_refine"] or launches["crosspol_argmin"]:
+        raise SystemExit("phase 9: the fused tail launched a kernel of the unfused tail")
+    dsig_col = calls["slab_refine_fused"][0][7][:, 5]
+    if int(torch.unique(dsig_col[~dsig_col.isnan()]).numel()) < 1000:
+        raise SystemExit("phase 9: K2 was not given the per-pixel dsig_cr array")
+    for name, w in (("wind_co", wind_co), ("wind_dual", wind_dual)):
+        if not isinstance(w, LabelledArray) or w.dims != ("line", "sample") \
+                or w.shape != (ny, nx) or not {"model", "comment"} <= set(w.attrs):
+            raise SystemExit(f"phase 9: {name} is not a labelled (line, sample) array with "
+                             f"model and comment attrs: {type(w).__name__} {w.dims} {w.attrs}")
+    co_speed, dual_speed = np.abs(wind_co.values), np.abs(wind_dual.values)
+    if not np.isnan(co_speed[PREP_LAND]).all() or not np.isfinite(dual_speed[PREP_LAND]).all():
+        raise SystemExit("phase 9: land pixels must be NaN in copol and finite in dual-pol wind")
+    sea = np.ones((ny, nx), bool)
+    sea[PREP_LAND] = False
+    if not np.isfinite(co_speed[sea]).all() or not np.isfinite(dual_speed).all():
+        raise SystemExit("phase 9: non-finite wind over sea")
+    rms = float(np.sqrt(np.mean((dual_speed - truth) ** 2)))
+    rms_co = float(np.sqrt(np.mean((co_speed[sea] - truth[sea]) ** 2)))
+    log(f"phase 9 invert_from_model through the xarray bridge, per-pixel dsig_cr (median "
+        f"{float(np.median(prep['dsig_cr'].values)):.4f}): launches {launches}, "
+        f"rms_vs_truth_m_s dual-pol {rms:.6f} (bound 1.0), copol over sea {rms_co:.6f}; "
+        f"attrs model '{wind_dual.attrs['model']}'")
+    if not rms < 1.0:
+        raise SystemExit(f"phase 9: dual-pol speed RMS {rms} m/s against the true wind, "
+                         "bound 1.0")
+    if prep["detrended"].attrs.get("comment") != f"detrended with model {PREP_MODELS[0]}" \
+            or not np.isnan(prep["detrended"].values[PREP_LAND]).all() \
+            or not np.isfinite(prep["detrended"].values[sea]).all() \
+            or not np.isfinite(prep["nesz_flat"].values).all():
+        raise SystemExit("phase 9: detrended sigma0 or flattened NESZ has wrong NaNs or attrs")
+
+    # step 3: card against device="cpu" in float64 on a strip; the float32 line
+    # fit; a chunked sigma0
+    top = {k: v.isel(line=slice(0, strip)) for k, v in ds.items()}
+    flat = prep["nesz_flat"].isel(line=slice(0, strip))
+    checks = {
+        "nesz_flattening": lambda d: nesz_flattening(top["nesz_cr"], top["inc"], device=d),
+        "get_dsig": lambda d: get_dsig(PREP_MODELS[1], top["inc"], top["nrcs_cr"], flat,
+                                       device=d),
+        "sigma0_detrend": lambda d: sigma0_detrend(top["nrcs"], top["inc"],
+                                                   model=PREP_MODELS[0], device=d),
+    }
+    for name, fn in checks.items():
+        dev = max_rel_dev(fn("cuda").values, fn("cpu").values)
+        log(f"phase 9 {name}: card vs device='cpu', float64, {strip} x {nx} px: max relative "
+            f"deviation {dev:.3e} (tolerance {PREP_RTOL[name]:.0e})")
+        if not dev <= PREP_RTOL[name]:
+            raise SystemExit(f"phase 9: {name} on the card deviates {dev} from the CPU")
+    f32 = nesz_flattening(top["nesz_cr"].astype(np.float32), top["inc"].astype(np.float32),
+                          device="cuda")
+    dev32 = max_rel_dev(f32.values, flat.values)
+    log(f"phase 9 nesz_flattening in float32 on the card vs float64: max relative deviation "
+        f"{dev32:.3e} (tolerance {PREP_RTOL_F32:.0e}; the input's dtype is kept, "
+        f"{f32.values.dtype} out)")
+    if f32.values.dtype != np.float32 or not dev32 <= PREP_RTOL_F32:
+        raise SystemExit(f"phase 9: float32 nesz_flattening deviates {dev32} from float64")
+    lazy = ChunkedRows(ds["nrcs"].data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunked = sigma0_detrend(DimArray(lazy, dims=("line", "sample")), ChunkedRows(ds["inc"].data),
+                             model=PREP_MODELS[0], device="cuda")
+    torch.cuda.synchronize()
+    seconds["sigma0_detrend, chunked"] = time.perf_counter() - t0
+    same = np.array_equal(chunked.values, prep["detrended"].values, equal_nan=True)
+    log(f"phase 9 sigma0_detrend on a chunked sigma0: bit-equal to the eager result: {same}; "
+        f"largest single request {lazy.max_request} elements")
+    if not same or lazy.max_request > 1 << 22:
+        raise SystemExit("phase 9: chunked sigma0_detrend differs from eager, or read more than "
+                         "one row block at once")
+
+    # step 4: the seconds of each step, with the card beside them
+    for name, sec in seconds.items():
+        log(f"phase 9 {name}: {sec:.4f} s"
+            + (f" (the process's first call: {first[name]:.4f} s)" if name in first else ""))
+    path = sum(sec for name, sec in seconds.items() if "chunked" not in name)
+    log("phase 9 card (nvidia-smi name, power.limit):")
+    log(card)
+    log(f"phase 9 rates, host arrays in and out, {n} px: sigma0_detrend "
+        f"{n / seconds['sigma0_detrend'] / 1e6:.3f} Mpx/s, whole path (steps 1-2) "
+        f"{n / path / 1e6:.3f} Mpx/s in {path:.4f} s")
+
+
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
     import torch
 
     if not torch.cuda.is_available():
@@ -634,7 +898,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
-        if phase.startswith(f"phase {through}") and through < 8:
+        if phase.startswith(f"phase {through}") and through < 9:
             log(f"stopped after phase {through}, as asked: no result line")
             raise SystemExit(0)
 
@@ -656,7 +920,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
     done("phase 2")
 
     t0 = time.perf_counter()
-    sc = make_scene(torch, get_model, n)
+    sc = make_scene(torch, get_model, n, seed)
     tables = prepare_tables(*models, dtype=torch.float32)
     log(f"scene ({n} px) and high-res tables {tables.co_lut.shape} + {tables.cr_lut.shape} "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -731,6 +995,10 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
     phase8(torch, K, report)
     done("phase 8")
 
+    # phase 9: scene preparation around the inversion, on a labelled scene
+    phase9(torch, K, report, card, seed)
+    done("phase 9")
+
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -740,6 +1008,9 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=8):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--through", type=int, default=8, choices=range(3, 9), metavar="N",
-                        help="stop after phase N (3-7); the default runs all eight phases")
-    sys.exit(run(through=parser.parse_args().through))
+    parser.add_argument("--through", type=int, default=9, choices=range(3, 10), metavar="N",
+                        help="stop after phase N (3-8); the default runs all nine phases")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the scenes (default 0, which phase 4's RMS gate expects)")
+    cli = parser.parse_args()
+    sys.exit(run(through=cli.through, seed=cli.seed))

@@ -4,6 +4,10 @@ of K1, K4 and K2 against the answers the cases were built to have, K1
 against the per-pixel loop, K4 and K2 against the JAX Pallas kernels in
 interpret mode, bit for bit. tests/test_torch_cuda.py and ``chip_smoke.py``
 hold the CUDA kernels against these plain versions on the same cases.
+The CPU cases hold no denormal ``dsig_cr`` divisor, because XLA's CPU backend
+flushes denormals and the JAX kernel in interpret mode then divides otherwise
+than IEEE; the card test adds them and holds them against the plain version
+only, not against JAX.
 """
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain PyTorch versions and
-the exact path. Needs a CUDA device and nvcc; skipped elsewhere.
+the exact path, and the scene-preparation functions on the card against
+their CPU runs. Needs a CUDA device and nvcc; skipped elsewhere.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -9,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from xsarsea_tpu_torch import sigma0_detrend
+from xsarsea_tpu_torch.dimarray import DimArray
 from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
@@ -16,8 +19,9 @@ from xsarsea_tpu_torch.ops.coarse_seams import (coarse_seam_cases, crosspol_seam
                                                 fused_crosspol_seam_cases, quotient_edge_set,
                                                 quotient_random_set)
 from xsarsea_tpu_torch.ops.slab_seams import seam_cases
-from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_pixels, \
-    prepare_tables
+from xsarsea_tpu_torch.windspeed import get_dsig, get_dsig_wspd, nesz_flattening
+from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_from_model, \
+    invert_pixels, prepare_tables
 
 from _parity import assert_equal_modulo_pi_ties
 
@@ -419,3 +423,130 @@ def test_kernel_wrappers_raise_not_fall_back(cuda):
     with pytest.raises(ValueError, match="aligned"):
         K.crosspol_argmin(*ops[5:7], torch.zeros(256 * 4 + 1, device=cuda)[1:].reshape(256, 4),
                           one * 0)
+
+
+def _prep_scene(ny=96, nx=640, seed=9):
+    """Incidence rising along the sample axis, NESZ rising with it (a few
+    NaNs), crosspol sigma0 and a copol-like sigma0 with a NaN patch."""
+    rng = np.random.default_rng(seed)
+    inc = np.linspace(18.0, 47.0, nx)[None, :].repeat(ny, 0) + rng.normal(0, 0.01, (ny, nx))
+    nesz = 10.0 ** ((-31.0 + 0.12 * (inc - 30.0) + rng.normal(0, 0.15, inc.shape)) / 10.0)
+    nesz[3, 7] = np.nan
+    s0_cr = rng.uniform(1e-4, 1e-2, inc.shape)
+    s0 = rng.uniform(1e-3, 0.5, inc.shape)
+    s0[5:9, 5:9] = np.nan
+    return inc, nesz, s0_cr, s0
+
+
+def test_scene_preparation_on_card_matches_cpu(cuda):
+    """``nesz_flattening``, ``get_dsig``, ``get_dsig_wspd`` and
+    ``sigma0_detrend`` with ``device="cuda"`` against ``device="cpu"``, float64:
+    rtol 1e-9 for the line fit (another summation order), 1e-12 for the
+    elementwise ones. numpy in, numpy out; a CUDA tensor in, one out."""
+    inc, nesz, s0_cr, s0 = _prep_scene()
+    for fn, args, rtol in ((nesz_flattening, (nesz, inc), 1e-9),
+                           (get_dsig, ("gmf_s1_v2", inc, s0_cr, nesz), 1e-12),
+                           (get_dsig, ("gmf_rs2_v2", inc, s0_cr, nesz), 1e-12),
+                           (get_dsig, ("nc_lut_cmodms1ahw", inc, s0_cr, nesz), 1e-12),
+                           (get_dsig_wspd, ("dsig_wspd_rs2_v3", s0 * 60.0, inc / 5.0), 1e-12),
+                           (sigma0_detrend, (s0, inc), 1e-12)):
+        on_card = fn(*args, device="cuda")
+        on_cpu = fn(*args, device="cpu")
+        assert isinstance(on_card, np.ndarray) and on_card.dtype == np.float64
+        np.testing.assert_allclose(on_card, on_cpu, rtol=rtol, atol=0, equal_nan=True)
+        dev_args = [torch.as_tensor(a, device=cuda) if isinstance(a, np.ndarray) else a
+                    for a in args]
+        resident = fn(*dev_args, device="cpu")  # the data's device wins
+        assert isinstance(resident, torch.Tensor) and resident.device.type == "cuda"
+        np.testing.assert_array_equal(resident.cpu().numpy(), on_card)
+    f32 = nesz_flattening(nesz.astype(np.float32), inc.astype(np.float32), device="cuda")
+    assert f32.dtype == np.float32
+    np.testing.assert_allclose(f32, nesz_flattening(nesz, inc, device="cpu"), rtol=1e-3)
+
+
+def test_detrend_of_a_chunked_scene_on_card_is_bit_equal_to_eager(cuda):
+    import xsarsea_tpu_torch.detrend as D
+
+    class Rows:  # a chunked duck array: first-axis slicing only
+        def __init__(self, a):
+            self._a, self.shape, self.ndim, self.dtype = a, a.shape, a.ndim, a.dtype
+            self.chunks = ((1,) * a.shape[0], (a.shape[1],))
+            self.max_request = 0
+
+        def __getitem__(self, idx):
+            assert isinstance(idx, slice)
+            block = self._a[idx]
+            self.max_request = max(self.max_request, block.size)
+            return block
+
+    inc, _, _, s0 = _prep_scene()
+    eager = sigma0_detrend(s0, inc, device="cuda")
+    lazy = Rows(s0)
+    old, D._BLOCK_ELEMS = D._BLOCK_ELEMS, 7 * s0.shape[1]
+    try:
+        got = sigma0_detrend(DimArray(lazy, dims=("line", "sample")), Rows(inc), device="cuda")
+    finally:
+        D._BLOCK_ELEMS = old
+    assert isinstance(got.data, np.ndarray) and lazy.max_request == 7 * s0.shape[1]
+    np.testing.assert_array_equal(got.data, eager)
+
+
+def test_dimarray_on_a_cuda_payload(cuda):
+    rng = np.random.default_rng(12)
+    data = rng.normal(size=(6, 50, 70))
+    data[1, 2, 3] = np.nan
+    kw = dict(dims=("a", "b", "c"), coords={"b": np.arange(50.0), "c": np.arange(70.0)})
+    host = DimArray(data, **kw)
+    dev = host.to(cuda)
+    assert dev.data.device.type == "cuda" and isinstance(dev.numpy().data, np.ndarray)
+    for name in ("mean", "nanmean", "sum", "min", "max"):
+        for dim in ("b", ("a", "c")):
+            got, ref = getattr(dev, name)(dim), getattr(host, name)(dim)
+            assert got.data.device.type == "cuda" and got.dims == ref.dims
+            np.testing.assert_allclose(got.values, ref.values, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(dev.coarsen_mean({"b": 4, "c": 3}).values,
+                               host.coarsen_mean({"b": 4, "c": 3}).values, rtol=1e-12)
+    # (a tensor over a Python scalar is a multiply by its reciprocal on CUDA,
+    # an ulp off numpy's divide: the bit-equal cases divide by no scalar)
+    ops = [lambda x: (x * 2.0 - x.isel(a=0)) * 0.5, lambda x: x / (x + 3.0),
+           lambda x: x.where(x > 0.0, -1.0),
+           lambda x: x.fillna(0.0).pad({"b": 2}, mode="reflect"),
+           lambda x: x.sel(b=[3.0, 7.0]).transpose("c", "b", "a"),
+           lambda x: x.interp(c=np.linspace(0.0, 69.0, 33)), lambda x: (x + 360.0) % 360.0]
+    for op in ops:
+        got, ref = op(dev), op(host)
+        assert got.data.device.type == "cuda" and got.dims == ref.dims
+        np.testing.assert_array_equal(got.values, ref.values)
+    mixed = dev + host.isel(a=0)  # a numpy operand follows the tensor to its device
+    assert mixed.data.device.type == "cuda"
+
+
+def test_invert_from_model_dataarrays_on_card(cuda):
+    """DataArray-like inputs, a per-pixel ``dsig_cr`` array among them,
+    through ``xarray_io`` into the fused kernels; the caller's class back."""
+    from _xr_stub import DataArray
+
+    rng = np.random.default_rng(13)
+    ny, nx = 64, 256
+    inc = np.linspace(19.0, 45.0, nx)[None, :].repeat(ny, 0)
+    speed = rng.uniform(2.0, 24.0, (ny, nx))
+    direc = rng.uniform(-np.pi, np.pi, (ny, nx))
+    s0_co = get_model("gmf_cmod5n")(inc, speed, np.abs(np.rad2deg(direc))).numpy()
+    s0_cr = get_model("gmf_s1_v2")(inc, speed, broadcast=True).numpy()
+    nesz = np.full_like(s0_cr, 10 ** -3.2)
+    da = lambda a: DataArray(a, dims=("line", "sample"))  # noqa: E731
+    dsig = get_dsig("gmf_s1_v2", da(inc), da(s0_cr), da(nesz))
+    assert isinstance(dsig, DataArray)
+    kw = dict(ancillary_wind=da(speed * np.exp(1j * direc)), dsig_cr=dsig,
+              model=("gmf_cmod5n", "gmf_s1_v2"), inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    K.reset_launch_counts()
+    co, dual = invert_from_model(da(inc), da(s0_co), da(s0_cr), **kw)  # device="cuda"
+    counts = K.launch_counts()
+    assert counts["group_argmin"] >= 1 and counts["slab_refine_fused"] >= 1
+    exact = invert_from_model(da(inc), da(s0_co), da(s0_cr), mode="exact", **kw)
+    for got, ref in zip((co, dual), exact):
+        assert isinstance(got, DataArray) and got.dims == ("line", "sample")
+        assert "model" in got.attrs and "comment" in got.attrs
+        differ = ~(got.values == ref.values)
+        assert differ.mean() < 0.005, differ.sum()  # near-tie flips only (1/dsig vs divide)
+    assert np.sqrt(np.mean((np.abs(dual.values) - speed) ** 2)) < 0.5

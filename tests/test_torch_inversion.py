@@ -413,7 +413,7 @@ def test_port_imports_no_jax():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'ml_dtypes'))\n"
+            "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'dask', 'h5py', 'ml_dtypes'))\n"
             "print(bad); print(*names); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
@@ -421,4 +421,7 @@ def test_port_imports_no_jax():
     walked = set(proc.stdout.splitlines()[1].split())
     assert {"xsarsea_tpu_torch.windspeed.inversion", "xsarsea_tpu_torch.ops.experiment_kernels",
             "xsarsea_tpu_torch.scripts.bench_slab_forms",
-            "xsarsea_tpu_torch.scripts.bench_kernel_variants"} <= walked
+            "xsarsea_tpu_torch.scripts.bench_kernel_variants", "xsarsea_tpu_torch.dimarray",
+            "xsarsea_tpu_torch.interop", "xsarsea_tpu_torch.directions",
+            "xsarsea_tpu_torch.detrend", "xsarsea_tpu_torch.windspeed.dsig",
+            "xsarsea_tpu_torch.models.gmf", "xsarsea_tpu_torch.utils"} <= walked

@@ -6,7 +6,8 @@ path serves scalar calls, N-D evaluation and 3-D LUT generation.
 
 Precision follows the inputs: tensor inputs keep their floating dtype and
 device; numpy arrays and Python numbers evaluate in float64 on the CPU.
-Lazy evaluation over chunked inputs (``_LazyGmfEval``) is not ported yet.
+A broadcast evaluation with a chunked input (``is_chunked``) stays lazy: it
+returns a :class:`_LazyGmfEval`, evaluated block by block on demand.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import logging
 import numpy as np
 import torch
 
-from xsarsea_tpu_torch.dimarray import DimArray
+from xsarsea_tpu_torch.dimarray import DimArray, is_chunked
 from xsarsea_tpu_torch.models.base import Model, _grid
 
 logger = logging.getLogger("xsarsea_tpu_torch.models.gmf")
@@ -45,6 +46,73 @@ def _prep(v, dtype, device):
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=dtype, device=device)
+
+
+class _LazyGmfEval:
+    """Lazy block-evaluated GMF result over chunked broadcast inputs.
+
+    The reference library keeps direct GMF evaluation on dask inputs lazy
+    (``da.broadcast_arrays`` and a ufunc, gmfs.py:293-316). Here the result
+    is a duck chunked array: it satisfies the package's lazy protocol
+    (``shape``/``ndim``/``dtype``/``chunks`` and numpy-style first-axis
+    slicing, see ``is_chunked``) and evaluates the GMF on a block of rows,
+    on the call's device, only when that block is asked for. A block comes
+    back as a host numpy array. The whole result exists only if the caller
+    asks for it (``np.asarray``); streaming consumers (the inversion source,
+    detrend) pull it piece by piece.
+    """
+
+    _BLOCK_ELEMS = 1 << 22
+
+    def __init__(self, eval_fn, raws, shape, dtype, device):
+        self._eval_fn = eval_fn  # broadcast evaluation over prepared tensors
+        self._raws = raws  # (inc, wspd, phi) raw data objects (phi may be None)
+        self._kind = dict(dtype=dtype, device=device)
+        self.shape = tuple(int(s) for s in shape)
+        self.ndim = len(self.shape)
+        self.dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        self._small = {}  # chunked inputs smaller than the result, read once
+        row = int(np.prod(self.shape[1:], dtype=np.int64))
+        rows = max(1, self._BLOCK_ELEMS // max(row, 1))
+        n0 = self.shape[0] if self.shape else 1
+        self.chunks = (tuple(min(rows, n0 - lo) for lo in range(0, n0, rows)),) \
+            + tuple((s,) for s in self.shape[1:])
+
+    def _block(self, raw, lo, hi):
+        if raw is None:
+            return None
+        if isinstance(raw, torch.Tensor):
+            return raw.expand(self.shape)[lo:hi].to(**self._kind)
+        if is_chunked(raw) and tuple(raw.shape) == self.shape:
+            raw = np.asarray(raw[lo:hi])
+        else:
+            if is_chunked(raw):  # the small operand of a broadcast: read it once
+                if id(raw) not in self._small:
+                    # the lazy protocol guarantees first-axis slicing only
+                    self._small[id(raw)] = np.asarray(raw[0:raw.shape[0]])
+                raw = self._small[id(raw)]
+            raw = np.array(np.broadcast_to(np.asarray(raw), self.shape)[lo:hi])  # a copy
+        return torch.as_tensor(np.ascontiguousarray(raw, dtype=self.dtype), **self._kind)
+
+    def __getitem__(self, idx):
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        if not (idx and isinstance(idx[0], slice) and all(s == slice(None) for s in idx[1:])):
+            raise IndexError("lazy GMF result supports first-axis slicing only; "
+                             "np.asarray() it for random access")
+        lo, hi, step = idx[0].indices(self.shape[0])
+        if step != 1:
+            raise IndexError("lazy GMF result does not support strided slices")
+        out = self._eval_fn(*(self._block(r, lo, hi) for r in self._raws))
+        return out.cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.empty(self.shape, dtype=self.dtype)
+        lo = 0
+        for rows in self.chunks[0]:
+            out[lo:lo + rows] = self[lo:lo + rows]
+            lo += rows
+        return out if dtype is None else out.astype(dtype)
 
 
 class GmfModel(Model):
@@ -134,7 +202,8 @@ class GmfModel(Model):
         All-scalar -> float; all-1D -> outer-product DimArray over
         (incidence, wspd[, phi]); otherwise, or with ``broadcast=True``,
         elementwise broadcast evaluation returning a tensor (or a DimArray
-        when an input is one).
+        when an input is one); with a chunked input that evaluation is lazy
+        (:class:`_LazyGmfEval`).
         """
         if self._needs_phi and phi is None:
             raise ValueError(
@@ -146,13 +215,27 @@ class GmfModel(Model):
         if any(hasattr(v, "ndim") and v.ndim > 1 for v in vals):
             broadcast = True
         dtype, device = _common_kind(vals)
+        template = next((v for v in (inc, wspd, phi) if isinstance(v, DimArray)), None)
+
+        if broadcast and any(is_chunked(_raw(v)) for v in vals):
+            # chunked inputs stay lazy: evaluated block by block on demand.
+            # The shape broadcasts over all the inputs given, phi included
+            # for a phi-independent model, as the eager branch below does.
+            raws = [_raw(inc), _raw(wspd), _raw(phi) if self._needs_phi else None]
+            shape = np.broadcast_shapes(*(tuple(np.shape(_raw(v))) for v in vals))
+            out = _LazyGmfEval(self._eval_broadcast, tuple(raws), shape, dtype, device)
+            if template is not None:
+                res = template.copy(data=out)
+                res.attrs = {"units": self.units}
+                return res
+            return out
+
         phi_t = _prep(phi, dtype, device) if self._needs_phi else None
 
         if broadcast:
             out = self._eval_broadcast(_prep(inc, dtype, device), _prep(wspd, dtype, device),
                                        phi_t)
             out = out.expand(torch.broadcast_shapes(*(tuple(np.shape(_raw(v))) for v in vals)))
-            template = next((v for v in (inc, wspd, phi) if isinstance(v, DimArray)), None)
             if template is not None:
                 res = template.copy(data=out)
                 res.attrs = {"units": self.units}

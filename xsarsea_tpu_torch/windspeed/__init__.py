@@ -1,7 +1,8 @@
 """windspeed: wind retrieval from sigma0 and GMF/LUT models.
 
-The ported part of ``xsarsea_tpu.windspeed``: models (analytic GMFs and the
-LUT-file loaders), tables and the inversion. dsig/NESZ is not ported yet.
+Counterpart of ``xsarsea_tpu.windspeed``: models (analytic GMFs and the
+LUT-file loaders), tables, the inversion, the dsig weightings and NESZ
+flattening.
 """
 
 __all__ = [
@@ -10,10 +11,13 @@ __all__ = [
     "Model",
     "available_models",
     "get_model",
+    "get_dsig",
+    "get_dsig_wspd",
     "gmfs",
     "gmfs_impl",
     "invert_from_model",
     "invert_pixels",
+    "nesz_flattening",
     "prepare_tables",
     "register_cmod7",
     "register_luts",
@@ -33,6 +37,7 @@ from xsarsea_tpu_torch.models import (
     register_pickle_luts,
 )
 from xsarsea_tpu_torch.models import gmf as gmfs  # noqa: F401
+from xsarsea_tpu_torch.windspeed.dsig import get_dsig, get_dsig_wspd, nesz_flattening
 from xsarsea_tpu_torch.windspeed.inversion import (
     InversionTables,
     invert_from_model,

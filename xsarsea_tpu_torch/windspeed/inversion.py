@@ -32,8 +32,9 @@ Modes:
   divides): callers that need run-to-run identity with ``"exact"`` pass
   ``mode="exact"``.
 
-Not ported yet: the ``pallas_exact`` mode (full-grid first pass), the xarray
-wrapper, and overlapped piece streaming.
+``invert_from_model`` takes and returns ``xarray.DataArray``-like objects
+through :func:`xsarsea_tpu_torch.interop.xarray_io`. Not ported yet: the
+``pallas_exact`` mode (full-grid first pass) and overlapped piece streaming.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from xsarsea_tpu_torch.dimarray import DimArray
+from xsarsea_tpu_torch.dimarray import DimArray, is_chunked
+from xsarsea_tpu_torch.interop import xarray_io
 from xsarsea_tpu_torch.models.base import get_model
 from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.ops.bucketing import (
@@ -55,6 +57,7 @@ from xsarsea_tpu_torch.ops.bucketing import (
     bucket_by_value,
     nearest_index_sorted,
 )
+from xsarsea_tpu_torch.utils import logger, timing
 
 __all__ = ["invert_from_model", "invert_pixels", "InversionTables", "prepare_tables"]
 
@@ -702,20 +705,25 @@ def _raw_data(x):
 
 def _any_valid(x):
     """True when ``x`` holds at least one non-NaN value (row blocks with
-    early exit for host arrays; a device reduction for tensors)."""
+    early exit for host and chunked arrays, so a lazy scene is never read
+    whole; a device reduction for tensors)."""
     if x is None:
         return False
     data = _raw_data(x)
     if isinstance(data, torch.Tensor):
         return bool(torch.any(~torch.isnan(data)))
-    data = np.asarray(data)
+    if not is_chunked(data):
+        data = np.asarray(data)
     if data.ndim == 0:
         return bool(~np.isnan(data))
     rest = int(np.prod(data.shape[1:], dtype=np.int64))
     step = max(1, (1 << 22) // max(1, rest))
-    return any(np.any(~np.isnan(data[r0:r0 + step])) for r0 in range(0, data.shape[0], step))
+    return any(np.any(~np.isnan(np.asarray(data[r0:r0 + step])))
+               for r0 in range(0, data.shape[0], step))
 
 
+@xarray_io
+@timing(logger=logger.info)
 def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsig_co=0.1,
                       dsig_cr=0.1, model=None, dtype=None, mode="auto", piece_size=None,
                       device_db=None, device="cuda", **kwargs):
@@ -724,7 +732,8 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
     Mono-pol (copol or crosspol) with one model, or dual-pol with
     ``model=(model_co, model_cr)`` (reference windspeed.py:17-128). Returns
     complex wind (modulus m/s, angle = direction in antenna convention), a
-    DimArray when an input is one. Dual-pol returns ``(wind_co, wind_dual)``
+    DimArray when an input is one, the caller's DataArray class when an
+    input is DataArray-like. Dual-pol returns ``(wind_co, wind_dual)``
     where wind_dual takes copol where either speed is < 5 m/s
     (windspeed.py:425-428).
 
