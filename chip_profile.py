@@ -25,11 +25,25 @@ needs a CUDA device and ``nvcc``, and imports nothing of JAX. On the
    through the xarray bridge with a per-pixel ``dsig_cr`` array) on its
    2,048 x 4,096 scene: device busy share, device time per kernel name and
    the host operations with the most self time (where the host waits: the
-   copies to and from the card, the piece loop).
+   copies to and from the card, the piece loop);
+8. ``chip_smoke.py``'s phase-4 call, dual-pol ``invert_from_model`` on the
+   2**23-pixel scene from host float64 arrays to host winds, profiled through
+   the overlapped piece loop and through the serial one: wall, device busy
+   share, the copies each way with their GB/s (bytes from the streams'
+   sizes), host self time; then 5 unprofiled calls of each, in turns;
+9. ``chip_smoke.py``'s phase-10 single-scale call, ``streaks_histogram_core``
+   on the device-resident 4,096 x 4,096 tile: one profiled call (device
+   operations by time, busy share), and its stages one by one from CUDA
+   events: the stencil cascade, the window gather, the median sort, the
+   weights with the histogram's scatter; beside each the bytes it must move
+   (each input read once, each output written once) over 3.35 TB/s as its
+   bound, and its share of the stages' sum.
 
 With ``--out DIR`` it writes the profiler's tables to
-``DIR/profile_table.txt``, ``DIR/profile_table_unfused.txt`` and
-``DIR/profile_table_scene_prep.txt`` and the summary to
+``DIR/profile_table.txt``, ``DIR/profile_table_unfused.txt``,
+``DIR/profile_table_scene_prep.txt``, ``DIR/profile_table_host_inout.txt``,
+``DIR/profile_table_host_inout_serial.txt`` and
+``DIR/profile_table_streaks.txt`` and the summary to
 ``DIR/chip_profile.json``.
 The last line of its output is the summary as JSON.
 """
@@ -47,7 +61,8 @@ from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import (cost_gaps, invert_labelled, log, make_scene, prep_scene, prepare_scene,
+from chip_smoke import (PEAK_BYTES, cost_gaps, host_seconds, invert_labelled, log, make_scene,
+                        prep_scene, prepare_scene, serial_piece_loop, synthetic_tile,
                         unfused_pair)
 
 MODELS = ("gmf_cmod5n", "gmf_s1_v2")
@@ -91,9 +106,11 @@ def profile_call(torch, once, out_dir, table_name):
             prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    copies = {way: sum(us for name, us in per_name.items() if name.startswith(f"Memcpy {way}"))
+              / 1e3 for way in ("HtoD", "DtoH")}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_sum_ms": sum(per_name.values()) / 1e3,
-            "busy_share": busy_us / wall_us if dev else None,
+            "busy_share": busy_us / wall_us if dev else None, "copies_ms": copies,
             "kernels_ms": {name[:120]: us / 1e3 for name, us in top[:12]},
             "host_self_ms": {a.key[:80]: a.self_cpu_time_total / 1e3 for a in host[:10]}}
 
@@ -163,6 +180,96 @@ def profile_and_rate(torch, tables, dev, out_dir, table_name, reps, what):
     return prof, rate
 
 
+def host_in_out(torch, sc, out_dir, reps=5):
+    """The phase-4 call through the overlapped piece loop and the serial one:
+    a profile of each, then ``reps`` unprofiled calls of each, in turns."""
+    from xsarsea_tpu_torch.windspeed.inversion import invert_from_model
+
+    n = sc["inc"].shape[0]
+    bytes_in, bytes_out = 5 * n * 4, 2 * n * 8  # five float32 streams in, two complex64 out
+
+    def once():
+        winds = invert_from_model(sc["inc"], sc["s0_co"], sc["s0_cr"], ancillary_wind=sc["anc"],
+                                  dsig_co=0.1, dsig_cr=0.1, model=MODELS, device="cuda")
+        torch.cuda.synchronize()
+        return winds
+
+    def serial_once():
+        with serial_piece_loop():
+            return once()
+
+    once()
+    out = {}
+    for name, fn, table in (("overlapped", once, "profile_table_host_inout.txt"),
+                            ("serial", serial_once, "profile_table_host_inout_serial.txt")):
+        prof = profile_call(torch, fn, out_dir, table)
+        prof["copy_gb_s"] = {way: nbytes / prof["copies_ms"][way] / 1e6
+                             if prof["copies_ms"][way] else None
+                             for way, nbytes in (("HtoD", bytes_in), ("DtoH", bytes_out))}
+        out[name] = prof
+    times = {"overlapped": [], "serial": []}
+    for _ in range(reps):
+        times["overlapped"].append(host_seconds(torch, once)[1])
+        times["serial"].append(host_seconds(torch, serial_once)[1])
+    for name, ts in times.items():
+        out[name]["seconds"] = ts
+        out[name]["median_s"] = statistics.median(ts)
+        log(f"host in/out, {name} piece loop ({n} px, {bytes_in / 1e6:.0f} MB in, "
+            f"{bytes_out / 1e6:.0f} MB out): {json.dumps(out[name])}")
+    return out
+
+
+def streaks_profile(torch, out_dir, tile=4096, win=40, reps=5):
+    """The phase-10 single-scale call: a profile, and its stages from CUDA
+    events with the bytes each must move as its bound."""
+    from xsarsea_tpu_torch import gradients as G
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    img = torch.as_tensor(synthetic_tile(tile, tile, 1), device="cuda")
+    centers = torch.arange(win // 2, tile // 4 - win // 2, win, device="cuda")
+    bins = torch.as_tensor(G._angle_bin_centers(72).astype(np.float32), device="cuda")
+
+    def once():
+        out = G.streaks_histogram_core(img, centers, centers, win, bins)
+        torch.cuda.synchronize()
+        return out
+
+    once()
+    prof = profile_call(torch, once, out_dir, "profile_table_streaks.txt")
+    lg = G._streaks_lg(img)
+    stack = torch.stack(lg)
+    w3 = G._extract_windows(stack, centers, centers, win, win)
+    planes = [w3[:, k, :] for k in range(3)]
+    vals = torch.where(planes[0] > 0, planes[0], torch.full_like(planes[0], float("inf")))
+    f32 = 4
+    lg_px, win_px = lg[0].numel(), planes[0].numel()
+    stages = {
+        "stencil cascade (_streaks_lg)": (lambda: G._streaks_lg(img),
+                                          img.numel() * f32 + 3 * lg_px * f32),
+        "window gather (stack + _extract_windows)": (
+            lambda: G._extract_windows(torch.stack(lg), centers, centers, win, win),
+            2 * 3 * win_px * f32),
+        "median sort (torch.sort of the rows)": (lambda: torch.sort(vals, dim=1),
+                                                 2 * win_px * f32),
+        "weights and histogram (_histogram_windows)": (
+            lambda: G._histogram_windows(*planes, bins, total=win * win),
+            3 * win_px * f32 + planes[0].shape[0] * 72 * f32),
+    }
+    table = {name: {"ms": cuda_ms(fn, reps), "bytes": nbytes,
+                    "bound_ms": nbytes / PEAK_BYTES * 1e3} for name, (fn, nbytes) in stages.items()}
+    hist = table["weights and histogram (_histogram_windows)"]
+    hist["ms_without_its_sort"] = hist["ms"] - table["median sort (torch.sort of the rows)"]["ms"]
+    total = sum(row["ms"] for name, row in table.items() if "median sort" not in name)
+    for name, row in table.items():
+        row["share_of_stages"] = row["ms"] / total
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    whole = cuda_ms(lambda: G.streaks_histogram_core(img, centers, centers, win, bins), reps)
+    out = {"profile": prof, "stages": table, "stages_sum_ms": total, "whole_call_ms": whole,
+           "windows": planes[0].shape[0], "window_px": planes[0].shape[1]}
+    log(f"streaks_histogram_core ({tile} x {tile} px f32, device-resident): {json.dumps(out)}")
+    return out
+
+
 def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
     import torch
 
@@ -220,10 +327,13 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
     log(f"scene preparation + invert_from_model ({ds['inc'].size} px, host arrays in and out): "
         f"{json.dumps(prof_p)}")
 
+    inout = host_in_out(torch, sc, out_dir)
+    streaks = streaks_profile(torch, out_dir)
+
     summary = {"card": card, "profile": prof, "rate": rate, "bench_parity": bench,
                "off_gmf_parity": off,
                "unfused": {"profile": prof_u, "rate": rate_u, "bench_parity": bench_u},
-               "scene_prep": prof_p}
+               "scene_prep": prof_p, "host_in_out": inout, "streaks": streaks}
     if out_dir is not None:
         (out_dir / "chip_profile.json").write_text(json.dumps(summary, indent=1))
     log(json.dumps(summary))

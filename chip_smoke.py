@@ -60,9 +60,34 @@ it finishes; any failure exits non-zero:
    ``get_dsig`` and ``sigma0_detrend`` on the card against ``device="cpu"``
    in float64 on a 256-line strip (rtol 1e-9, 1e-12 and 1e-11), the float32
    line fit's deviation from float64, and ``sigma0_detrend`` on a chunked
-   sigma0, bit-equal to the eager result. Each step prints its seconds.
+   sigma0, bit-equal to the eager result. Each step prints its seconds;
+10. the wind streaks (Koch 2004), through ``xsarsea_tpu_torch.gradients``,
+    which holds no hand kernel (plain PyTorch calls, as the JAX package has
+    no Pallas kernel there): ``streaks_histogram_core`` on a device-resident
+    4,096 x 4,096 float32 tile of streaks ``sin(0.35 (x + 0.6 y))`` under
+    noise, 625 windows of 40 x 40 local-gradient pixels, 72 bins, median of
+    3 timed runs after a warm-up; ``Gradients(...).histogram`` with window
+    sizes 1,600 and 3,200 m and downscale factors 1 and 2 on 2 x 2,048 x
+    2,048 px at 10 m, construction included, the fused result against the
+    per-instance path; ``Gradients2D`` on a scene of 8,192 x 16,384 px
+    (2**27, a Sentinel-1 IW GRD's order) that exists only as a row
+    generator, streamed in bands of at most 2**25 px, with its seconds, the
+    generator's share of them and the largest single request, and on a
+    4,096-row strip of it against the same strip in memory. Gates: the card
+    against ``device="cpu"`` in float64 on a 512 x 512 crop (local gradients
+    1e-11 relative to the largest value, histograms rtol 1e-9 with atol
+    1e-12), float32 on the card against float64 (weight within 1e-3), the
+    stencils and resamplings in float32 within 1e-5 of float64 with TF32
+    allowed by the caller, the peak of the mean histogram within one 2.5 deg
+    bin of the streaks' gradient direction ``atan2(0.6, 1)``, ``used_ratio``
+    1.0 for interior windows and no non-finite weight.
 
-``python3 chip_smoke.py --through N`` (N from 3 to 8) stops after phase N,
+Phases 4 and 9 run ``invert_from_model`` through the overlapped piece loop
+(preparation, kernels and result copies of neighbouring pieces at once,
+through pinned buffers) and again through the serial loop: the two results
+must be bit-equal, and both times are printed.
+
+``python3 chip_smoke.py --through N`` (N from 3 to 9) stops after phase N,
 for a quicker look at the phases before it while a kernel is being worked
 on; it prints neither of the two result lines below, which only a whole run
 earns.
@@ -83,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gzip
 import json
 import shutil
@@ -628,6 +654,48 @@ def phase8(torch, K, report):
             f"bound {variant_bound[0]:.4g} ms ({variant_bound[1]})")
 
 
+@contextlib.contextmanager
+def serial_piece_loop():
+    """Run ``invert_from_model``'s piece loop one piece after the other on the
+    calling thread, as the overlapped loop's reference."""
+    from xsarsea_tpu_torch.windspeed import inversion as inv
+
+    overlapped = inv._invert_source
+    inv._invert_source = functools.partial(overlapped, _overlap=False)
+    try:
+        yield
+    finally:
+        inv._invert_source = overlapped
+
+
+def same_bits(a, b):
+    """True when two arrays hold the same bytes (NaN payloads included)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def host_seconds(torch, fn):
+    """(result, seconds) of ``fn()``, host clock around synchronized work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hold_against_serial_loop(torch, invert, winds, values_of, phase):
+    """Run ``invert()`` through the serial piece loop; exit unless ``winds``,
+    the overlapped loop's result, equals it bit for bit. Returns the serial
+    loop's seconds."""
+    with serial_piece_loop():
+        ref, seconds = host_seconds(torch, invert)
+    for name, got, want in zip(("wind_co", "wind_dual"), winds, ref):
+        if not same_bits(values_of(got), values_of(want)):
+            raise SystemExit(f"{phase}: {name} of the overlapped piece loop differs from the "
+                             "serial loop's")
+    return seconds
+
+
 # ------------------------------------------------- phase 9: scene preparation
 
 PREP_MODELS = ("gmf_cmod5n", "gmf_s1_v2")
@@ -782,12 +850,13 @@ def phase9(torch, K, report, card, seed, ny=2048, nx=4096, strip=256):
     prep = prepare_scene(torch, ds, seconds)
     K.reset_launch_counts()
     with captured_calls(K) as calls:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wind_co, wind_dual = invert_labelled(ds, prep)
-        torch.cuda.synchronize()
-        seconds["invert_from_model"] = time.perf_counter() - t0
+        (wind_co, wind_dual), seconds["invert_from_model"] = host_seconds(
+            torch, lambda: invert_labelled(ds, prep))
     launches = K.launch_counts()
+    serial = hold_against_serial_loop(torch, lambda: invert_labelled(ds, prep),
+                                      (wind_co, wind_dual), lambda w: w.values, "phase 9")
+    log(f"phase 9 invert_from_model: overlapped piece loop {seconds['invert_from_model']:.4f} s, "
+        f"serial piece loop {serial:.4f} s, results bit-equal")
     for name in ("group_argmin", "slab_refine_fused"):
         if launches[name] == 0 or name not in calls:
             raise SystemExit(f"phase 9: kernel {name} was not launched by the inversion")
@@ -875,7 +944,255 @@ def phase9(torch, K, report, card, seed, ny=2048, nx=4096, strip=256):
         f"{n / path / 1e6:.3f} Mpx/s in {path:.4f} s")
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
+# ----------------------------------------------------- phase 10: the streaks
+
+STREAK_SLOPE = 0.6  # the tile's streaks: sin(0.35 (x + 0.6 y)), gradient along (1, 0.6)
+STREAKS_RTOL_LG = 1e-11  # card vs device="cpu", float64: stencils are sums in a fixed order
+STREAKS_RTOL_HIST, STREAKS_ATOL_HIST = 1e-9, 1e-12  # the histogram's sum is in any order
+STREAKS_ATOL_F32 = 1e-3  # float32 weight against float64 (a pixel may change bin)
+STREAKS_RTOL_TF32 = 1e-5  # float32 stencils and resamplings against float64
+STREAKS_RTOL_PATHS = 1e-4  # float32, two paths to one histogram: of the largest weight
+
+
+def synthetic_tile(ny, nx, seed):
+    """The streak scene of the JAX package's benchmark (``_synthetic_tile``):
+    a 256-px tile of ``sin(0.35 (x + 0.6 y))`` under N(0, 0.1) noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:256, 0:256]
+    tile = 1.0 + 0.5 * np.sin(0.35 * (x + STREAK_SLOPE * y))
+    return np.abs(np.tile(tile, (ny // 256, nx // 256))
+                  + 0.1 * rng.normal(size=(ny, nx))).astype(np.float32) + 0.01
+
+
+class GeneratedRows:
+    """A scene that exists only as a row generator: a chunked duck array
+    (first-axis slicing) whose rows are the streak tile under uniform noise of
+    standard deviation 0.1 (cheaper to draw than the tile's normal noise: the
+    generator stands for a file's reader, not for the work under test) drawn
+    per 256-row stripe from ``(seed, stripe)``, so any range of rows is made
+    anew from nothing. Records the largest single request and the seconds
+    spent generating."""
+
+    STRIPE = 256
+
+    def __init__(self, ny, nx, seed):
+        self.shape, self.ndim, self.dtype = (ny, nx), 2, np.dtype(np.float32)
+        self.chunks = ((self.STRIPE,) * (ny // self.STRIPE), (nx,))
+        self.seed = seed
+        y, x = np.mgrid[0:self.STRIPE, 0:256]
+        self._tile = np.tile((1.0 + 0.5 * np.sin(0.35 * (x + STREAK_SLOPE * y)))
+                             .astype(np.float32), (1, nx // 256))
+        self.max_request = 0
+        self.seconds = 0.0
+
+    def _stripe(self, k):
+        noise = np.random.default_rng([self.seed, k]).random(self._tile.shape, dtype=np.float32)
+        noise -= np.float32(0.5)
+        noise *= np.float32(0.1 * 12 ** 0.5)
+        noise += self._tile
+        return np.abs(noise, out=noise) + np.float32(0.01)
+
+    def __getitem__(self, idx):
+        if not isinstance(idx, slice) or idx.step not in (None, 1):
+            raise IndexError("first-axis slicing only")
+        t0 = time.perf_counter()
+        r0, r1, _ = idx.indices(self.shape[0])
+        k0, k1 = r0 // self.STRIPE, -(-r1 // self.STRIPE)
+        rows = np.concatenate([self._stripe(k) for k in range(k0, k1)])
+        block = rows[r0 - k0 * self.STRIPE:r1 - k0 * self.STRIPE]
+        self.max_request = max(self.max_request, block.size)
+        self.seconds += time.perf_counter() - t0
+        return block
+
+
+def max_dev(got, ref):
+    """Largest deviation of ``got`` from ``ref`` over the largest |ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.array_equal(np.isnan(got), np.isnan(ref)):
+        return float("inf")
+    ok = ~np.isnan(ref)
+    return float(np.max(np.abs(got[ok] - ref[ok])) / np.max(np.abs(ref[ok])))
+
+
+def streak_peak(weight, n_angles=72):
+    """(peak bin's angle, the streaks' gradient direction, bins apart) of the
+    mean histogram over all windows. The local gradient's angle is
+    ``atan2(d/dline, d/dsample)`` folded into [-pi/2, pi/2)."""
+    bins = np.linspace(-np.pi / 2, np.pi / 2, n_angles + 1)
+    centers = (bins[1:] + bins[:-1]) / 2
+    mean = np.asarray(weight, np.float64).reshape(-1, n_angles).mean(axis=0)
+    expected = np.arctan2(STREAK_SLOPE, 1.0)
+    peak = centers[int(mean.argmax())]
+    return peak, expected, abs(peak - expected) / (np.pi / n_angles)
+
+
+def phase10(torch, card, seed, tile=4096, class_side=2048, scene=(8192, 16384), strip=4096,
+            crop=512, max_block_px=1 << 25):
+    """The wind-streak path: the core, the multiscale class, the out-of-core
+    scene, and the gates."""
+    from xsarsea_tpu_torch import DimArray
+    from xsarsea_tpu_torch import gradients as G
+    from xsarsea_tpu_torch.ops import conv2d as C
+    from xsarsea_tpu_torch.utils import staging
+
+    def rate(fn, px, reps=3):
+        fn()
+        times = [host_seconds(torch, fn)[1] for _ in range(reps)]
+        return px / statistics.median(times) / 1e6, times
+
+    # the single-scale core on the benchmark's tile, device-resident
+    win = 40
+    n_lg = tile // 4
+    centers = np.arange(win // 2, n_lg - win // 2, win, dtype=np.int32)
+    bins32 = G._angle_bin_centers(72).astype(np.float32)
+    img = synthetic_tile(tile, tile, seed + 1)
+    img_d = torch.as_tensor(img, device="cuda")
+    cl_d, bins_d = torch.as_tensor(centers, device="cuda"), torch.as_tensor(bins32, device="cuda")
+    core_rate, times = rate(lambda: G.streaks_histogram_core(img_d, cl_d, cl_d, win, bins_d),
+                            img.size)
+    weight, used = (t.cpu().numpy() for t in
+                    G.streaks_histogram_core(img_d, cl_d, cl_d, win, bins_d))
+    peak, expected, bins_off = streak_peak(weight)
+    log(f"phase 10 streaks_histogram_core, device-resident f32, {tile} x {tile} px, "
+        f"{len(centers) ** 2} windows of {win} x {win} lg px: {core_rate:.3f} Mpx/s (median of "
+        f"{len(times)}: {[round(t, 4) for t in times]} s); peak of the mean histogram at "
+        f"{np.rad2deg(peak):.2f} deg, streaks' gradient at {np.rad2deg(expected):.2f} deg "
+        f"({bins_off:.2f} bins apart)")
+    if weight.shape != (len(centers) ** 2, 72) or not np.isfinite(weight).all() \
+            or not (used == 1.0).all() or not bins_off <= 1.0:
+        raise SystemExit(f"phase 10: the core's histogram has shape {weight.shape}, non-finite "
+                         f"weights, interior windows with used_ratio != 1 "
+                         f"(min {used.min()}), or its peak {bins_off:.2f} bins off the streaks")
+
+    # the multiscale class, construction included; fused against per-instance
+    side = class_side
+    base = synthetic_tile(side, side, seed + 2)
+    stack_d = torch.as_tensor(np.stack([base, 0.2 * base]), device="cuda")
+    da = DimArray(stack_d, dims=("pol", "line", "sample"),
+                  coords={"pol": np.array(["VV", "VH"]), "line": np.arange(side) * 10.0,
+                          "sample": np.arange(side) * 10.0})
+    kw = dict(windows_sizes=[1600, 3200], downscales_factors=[1, 2])
+    class_rate, times = rate(lambda: G.Gradients(da, **kw).histogram, stack_d.numel())
+    fused = G.Gradients(da, **kw).histogram
+    per_instance = G.Gradients(da, **kw)
+    per_instance.gradients_list  # touching the instances takes the per-instance path
+    inst = per_instance.histogram
+    dev_paths = max_dev(inst["weight"].values, fused["weight"].values)
+    dims = ("pol", "downscale_factor", "window_size", "line", "sample", "angles")
+    log(f"phase 10 Gradients(windows_sizes=[1600, 3200], downscales_factors=[1, 2]).histogram, "
+        f"device-resident f32, 2 x {side} x {side} px at 10 m, construction included: "
+        f"{class_rate:.3f} Mpx/s (median of {len(times)}: {[round(t, 4) for t in times]} s); "
+        f"weight {tuple(fused['weight'].shape)}; fused vs per-instance: {dev_paths:.3e} of the "
+        f"largest weight (tolerance {STREAKS_RTOL_PATHS:.0e}: float32 sums in any order)")
+    if fused["weight"].dims != dims or inst["weight"].dims != dims \
+            or not np.isfinite(fused["weight"].values).all() \
+            or not dev_paths <= STREAKS_RTOL_PATHS \
+            or not np.array_equal(fused["used_ratio"].values, inst["used_ratio"].values):
+        raise SystemExit("phase 10: the multiscale histogram has wrong dims or non-finite "
+                         f"weights, or its two paths differ ({dev_paths})")
+
+    # a product-size scene through the out-of-core path
+    ny, nx = scene
+    coords = {"line": np.arange(ny) * 10.0, "sample": np.arange(nx) * 10.0}
+    rows = GeneratedRows(ny, nx, seed)
+    pinned0 = staging.pool().bytes
+
+    def out_of_core():
+        return G.Gradients2D(DimArray(rows, dims=("line", "sample"), coords=coords),
+                             window_size=1600, device="cuda").histogram["weight"].values
+
+    big, seconds = host_seconds(torch, out_of_core)
+    peak, expected, bins_off = streak_peak(big)
+    log(f"phase 10 Gradients2D on a generated {ny} x {nx} px scene ({ny * nx} px, "
+        f"{ny * nx * 4 / 1e6:.0f} MB as float32, never whole in host memory), window 1,600 m, "
+        f"{big.shape[0]} x {big.shape[1]} windows: {seconds:.3f} s = "
+        f"{ny * nx / seconds / 1e6:.3f} Mpx/s, of which the generator {rows.seconds:.3f} s "
+        f"({ny * nx / (seconds - rows.seconds) / 1e6:.3f} Mpx/s without it); "
+        f"largest single request {rows.max_request} px (bound {1 << 25}); pinned staging "
+        f"{staging.pool().bytes / 1e6:.0f} MB ({pinned0 / 1e6:.0f} MB before); peak "
+        f"{bins_off:.2f} bins off the streaks")
+    if not np.isfinite(big).all() or not 0 < rows.max_request <= 1 << 25 \
+            or not bins_off <= 1.0:
+        raise SystemExit("phase 10: the out-of-core histogram is not finite, a band asked for "
+                         f"{rows.max_request} px, or the peak is {bins_off:.2f} bins off")
+    top = {"line": coords["line"][:strip], "sample": coords["sample"]}
+    lazy_strip = GeneratedRows(strip, nx, seed)
+    in_memory = GeneratedRows(strip, nx, seed)[0:strip]
+    eager = G.Gradients2D(DimArray(in_memory, dims=("line", "sample"), coords=top),
+                          window_size=1600, device="cuda").histogram
+    win_lg, cl, cs = G._lg_window_spec(top, 1600, eager["weight"].coords)
+    banded = [t.cpu().numpy().reshape(len(cl), len(cs), -1) for t in G._banded_streaks_hist(
+        lazy_strip, cl, cs, win_lg, G._angle_bin_centers(72), max_block_px=max_block_px,
+        device="cuda")]
+    dev_strip = max_dev(banded[0], eager["weight"].values)
+    n_strip = eager["weight"].shape[0]
+    dev_big = max_dev(big[:n_strip - 1], eager["weight"].values[:n_strip - 1])
+    log(f"phase 10 out-of-core vs in-memory on the first {strip} x {nx} px: banded strip "
+        f"(largest request {lazy_strip.max_request} px) {dev_strip:.3e}, the whole scene's first "
+        f"{n_strip - 1} window rows {dev_big:.3e} of the largest weight (tolerance "
+        f"{STREAKS_RTOL_PATHS:.0e})")
+    if not lazy_strip.max_request < strip * nx or not dev_strip <= STREAKS_RTOL_PATHS \
+            or not dev_big <= STREAKS_RTOL_PATHS \
+            or not np.array_equal(banded[1][..., 0], eager["used_ratio"].values):
+        raise SystemExit("phase 10: the out-of-core path differs from the in-memory one, or "
+                         "read the strip whole")
+
+    # the card against device="cpu" in float64 on a crop; float32 against float64
+    small = img[:crop, :crop].astype(np.float64)
+    cl = np.r_[0, np.arange(win // 2, crop // 4 - win // 2, win // 2), crop // 4 - 1]
+    bins = G._angle_bin_centers(72)
+    sides = (("card", "cuda"), ("host", "cpu"))
+    lg = {side: G.local_gradients(G.Gradients2D(small, device=d).ampl) for side, d in sides}
+    for name in ("G2", "G3", "c"):
+        got, ref = lg["card"][name].values, lg["host"][name].values
+        dev = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        log(f"phase 10 local_gradients {name}: card vs device='cpu', float64, {crop} x {crop} "
+            f"px: {dev:.3e} of the largest value (tolerance {STREAKS_RTOL_LG:.0e})")
+        if got.shape != ref.shape or not dev <= STREAKS_RTOL_LG:
+            raise SystemExit(f"phase 10: local_gradients {name} on the card deviates {dev}")
+    hist = {side: [t.cpu().numpy() for t in G.streaks_histogram_core(small, cl, cl, win, bins,
+                                                                      device=d)]
+            for side, d in sides}
+    close = np.isclose(hist["card"][0], hist["host"][0], rtol=STREAKS_RTOL_HIST,
+                       atol=STREAKS_ATOL_HIST)
+    log(f"phase 10 streaks_histogram_core: card vs device='cpu', float64, {len(cl) ** 2} "
+        f"windows (border windows clipped): {int((~close).sum())} of {close.size} bins outside "
+        f"rtol {STREAKS_RTOL_HIST:.0e} + atol {STREAKS_ATOL_HIST:.0e}, largest deviation "
+        f"{np.abs(hist['card'][0] - hist['host'][0]).max():.3e}")
+    if not close.all() or not np.array_equal(hist["card"][1], hist["host"][1]):
+        raise SystemExit("phase 10: the histograms on the card deviate from the CPU's")
+    w32 = G.streaks_histogram_core(small.astype(np.float32), cl, cl, win, bins32,
+                                   device="cuda")[0].cpu().numpy()
+    dev32 = float(np.abs(w32 - hist["card"][0]).max())
+    log(f"phase 10 streaks_histogram_core in float32 on the card vs float64: largest deviation "
+        f"of weight {dev32:.3e} (tolerance {STREAKS_ATOL_F32:.0e}; the largest weight is "
+        f"{hist['card'][0].max():.3e})")
+    if w32.dtype != np.float32 or not dev32 <= STREAKS_ATOL_F32:
+        raise SystemExit(f"phase 10: float32 weight deviates {dev32} from float64")
+
+    # TF32 allowed by the caller must not reach the stencils or the resamplings
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        x64 = torch.as_tensor(img[:1024, :1024].astype(np.float64), device="cuda")
+        uneven = np.random.default_rng(seed).normal(size=(4, 5))
+        for name, fn in (("resize_area", lambda x: C.resize_area(x, (341, 341))),
+                         ("zoom_bilinear", lambda x: C.zoom_bilinear(x, (1500, 1500))),
+                         ("conv2d_same, 4 x 5 kernel", lambda x: C.conv2d_same(x, uneven)),
+                         ("r2_reduce", C.r2_reduce)):
+            dev = max_dev(fn(x64.float()).cpu().numpy(), fn(x64).cpu().numpy())
+            log(f"phase 10 {name}: float32 vs float64 on the card, TF32 allowed by the caller: "
+                f"{dev:.3e} of the largest value (tolerance {STREAKS_RTOL_TF32:.0e})")
+            if not dev <= STREAKS_RTOL_TF32:
+                raise SystemExit(f"phase 10: {name} in float32 deviates {dev} from float64")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+    log("phase 10 card (nvidia-smi name, power.limit):")
+    log(card)
+
+
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
     import torch
 
     if not torch.cuda.is_available():
@@ -898,7 +1215,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
-        if phase.startswith(f"phase {through}") and through < 9:
+        if phase.split()[1] == str(through) and through < 10:
             log(f"stopped after phase {through}, as asked: no result line")
             raise SystemExit(0)
 
@@ -937,14 +1254,17 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
     done("phase 3 (with the scene and tables)")
 
     # phase 4: the main path, with launch counts
+    def main_path():
+        return invert_from_model(
+            sc["inc"], sc["s0_co"], sc["s0_cr"], ancillary_wind=sc["anc"], dsig_co=0.1,
+            dsig_cr=0.1, model=models, device="cuda")
+
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    wind_co, wind_dual = invert_from_model(
-        sc["inc"], sc["s0_co"], sc["s0_cr"], ancillary_wind=sc["anc"], dsig_co=0.1,
-        dsig_cr=0.1, model=models, device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    (wind_co, wind_dual), seconds = host_seconds(torch, main_path)
     launches = K.launch_counts()
+    (wind_co, wind_dual), seconds_again = host_seconds(torch, main_path)
+    seconds_serial = hold_against_serial_loop(torch, main_path, (wind_co, wind_dual),
+                                              lambda w: w, "phase 4")
     for name in ("group_argmin", "slab_refine_fused"):
         if launches[name] == 0:
             raise SystemExit(f"phase 4: kernel {name} was not launched by the main path")
@@ -962,6 +1282,9 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
     log(f"phase 4 invert_from_model: {n} px in {seconds:.2f} s (host in/out, tables cached), "
         f"launches {launches}, rms_vs_truth_noisy_m_s {rms:.6f} "
         f"(merged dual output: {rms_merged:.6f})")
+    log(f"phase 4 piece loop, {n} px host in/out: overlapped {seconds:.4f} s (the process's "
+        f"first call, which pins its buffers), again {seconds_again:.4f} s; serial "
+        f"{seconds_serial:.4f} s; results bit-equal")
     if not 0.341 <= rms <= 0.351:
         raise SystemExit(f"phase 4: rms_vs_truth_noisy_m_s {rms} outside 0.346 +- 0.005")
     done("phase 4")
@@ -999,6 +1322,10 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
     phase9(torch, K, report, card, seed)
     done("phase 9")
 
+    # phase 10: the wind streaks (no hand kernel: the counts above stay as they are)
+    phase10(torch, card, seed)
+    done("phase 10")
+
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1008,8 +1335,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=9, seed=0):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--through", type=int, default=9, choices=range(3, 10), metavar="N",
-                        help="stop after phase N (3-8); the default runs all nine phases")
+    parser.add_argument("--through", type=int, default=10, choices=range(3, 11), metavar="N",
+                        help="stop after phase N (3-9); the default runs all ten phases")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the scenes (default 0, which phase 4's RMS gate expects)")
     cli = parser.parse_args()

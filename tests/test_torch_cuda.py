@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, against their plain PyTorch versions and
-the exact path, and the scene-preparation functions on the card against
-their CPU runs. Needs a CUDA device and nvcc; skipped elsewhere.
+the exact path; the scene-preparation functions and the wind-streak path on
+the card against their CPU runs; the overlapped piece loop on its streams
+against the serial one. Needs a CUDA device and nvcc; skipped elsewhere.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -550,3 +551,146 @@ def test_invert_from_model_dataarrays_on_card(cuda):
         differ = ~(got.values == ref.values)
         assert differ.mean() < 0.005, differ.sum()  # near-tie flips only (1/dsig vs divide)
     assert np.sqrt(np.mean((np.abs(dual.values) - speed) ** 2)) < 0.5
+
+
+def _stream_scene(n, seed):
+    rng = np.random.default_rng(seed)
+    inc = rng.uniform(18.0, 47.0, n)
+    speed = rng.uniform(0.5, 30.0, n)
+    direc = rng.uniform(-np.pi, np.pi, n)
+    dev = [torch.as_tensor(a, device="cuda") for a in (inc, speed, np.abs(np.rad2deg(direc)))]
+    s0_co = get_model("gmf_cmod5n")(*dev, broadcast=True).cpu().numpy()
+    s0_cr = get_model("gmf_s1_v2")(dev[0], dev[1], broadcast=True).cpu().numpy()
+    anc = (speed + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * direc)
+    inc[0], s0_co[1], anc[2], s0_cr[3] = np.nan, np.nan, np.nan, np.nan
+    return inc, s0_co, s0_cr, anc
+
+
+def _same_bits(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("mode,dtype", [("fused", torch.float32), ("exact", torch.float64)])
+def test_overlapped_piece_loop_equals_serial_on_card(cuda, mode, dtype):
+    """The three lanes on their streams (copies in, kernels, copies out through
+    pinned buffers) against the serial loop: bit for bit, for host arrays in
+    and out, for results kept on the card, and for tensors already there."""
+    from xsarsea_tpu_torch.utils import staging
+    from xsarsea_tpu_torch.windspeed.inversion import _invert_source, _LazySource
+
+    n, piece = (1 << 20) + 12345, 1 << 18  # five pieces, the last ragged
+    if mode == "exact":
+        n, piece = 9000, 2048
+    inc, s0_co, s0_cr, anc = _stream_scene(n, 21)
+    tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=dtype, inc_step=0.5,
+                            wspd_step=0.2, phi_step=2.5)
+
+    def run(**kw):
+        src = _LazySource((n,), inc, s0_co=s0_co, s0_cr=s0_cr, dsig_cr=0.1, anc=anc)
+        return _invert_source(tables, src, mode=mode, device=cuda, piece_size=piece, **kw)
+
+    pinned_before = staging.pool().bytes
+    serial = run(_overlap=False)
+    for _ in range(3):  # the lanes' timing differs run to run: the bits must not
+        for got, ref in zip(run(), serial):
+            assert _same_bits(got, ref)
+    torch.cuda.synchronize()
+    # every buffer is back in the pool, which holds a few pieces' worth, not the scene's
+    pool = staging.pool()
+    assert not pool._pending or all(ev.query() for ev, _ in pool._pending)
+    assert pool.bytes - pinned_before <= 40 * piece * 8
+    on_card = run(device_output=True)
+    assert all(t.device.type == "cuda" and t.is_complex() for t in on_card)
+    for got, ref in zip(on_card, serial):
+        assert _same_bits(got.cpu().numpy(), ref)
+    # tensors in: pieces are views (a side stream must wait for their making)
+    f = dict(dtype=dtype, device=cuda)
+    db = lambda x: 10.0 * torch.log10(torch.as_tensor(x, **f) + 1e-15)  # noqa: E731
+    args = (torch.as_tensor(inc, **f), db(s0_co), db(s0_cr), torch.full((n,), 0.1, **f),
+            torch.as_tensor(anc, device=cuda).to(torch.complex64 if dtype == torch.float32
+                                                else torch.complex128))
+    ref = invert_pixels(tables, *args, mode=mode, device=cuda, piece_size=n)
+    got = invert_pixels(tables, *args, mode=mode, device=cuda, piece_size=piece)
+    for g, r in zip(got, ref):
+        assert _same_bits(g, r)
+
+
+def test_staging_round_trip_on_card(cuda):
+    """``to_device`` and ``to_host`` through pinned buffers: the values a plain
+    copy gives, for casts, strided sources, chunked results and ``out=``."""
+    from xsarsea_tpu_torch.utils import staging
+
+    rng = np.random.default_rng(22)
+    a = rng.normal(size=(3000, 4100))  # 98 MB as float64: several 32 MiB chunks back
+    t = staging.to_device(a, cuda, torch.float32)
+    assert t.device.type == "cuda" and t.dtype == torch.float32
+    assert torch.equal(t.cpu(), torch.as_tensor(a.astype(np.float32)))
+    t64 = staging.to_device(a[::2, ::3], cuda)
+    back = staging.to_host(t64)
+    assert back.dtype == np.float64 and np.array_equal(back, a[::2, ::3])
+    whole = staging.to_host(staging.to_device(a, cuda))
+    assert np.array_equal(whole, a)
+    out = np.zeros((2,) + a.shape)
+    assert staging.to_host(t, out=out[1]) is not None
+    assert np.array_equal(out[1], a.astype(np.float32)) and not out[0].any()
+    z = torch.as_tensor(a[:100] + 1j * a[100:200], device=cuda)
+    assert np.array_equal(staging.to_host(z), a[:100] + 1j * a[100:200])
+    small = staging.to_device(np.arange(10), cuda)  # too small for a staging buffer
+    assert small.device.type == "cuda" and small.tolist() == list(range(10))
+    assert DimArray(t64, dims=("line", "sample")).values.shape == t64.shape
+    assert staging.pool().bytes > 0
+
+
+def test_streaks_card_against_cpu(cuda):
+    """The wind-streak path on the card against ``device="cpu"`` in float64:
+    local gradients to 1e-11 of the largest value (stencils added in a fixed
+    order), histograms to rtol 1e-9 with atol 1e-12 (the card's ``index_add_``
+    sums in any order), through the core, the banded out-of-core routine and
+    the multiscale class."""
+    from xsarsea_tpu_torch import gradients as G
+
+    rng = np.random.default_rng(23)
+    ny, nx = 600, 520
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    img = (1.0 + 0.4 * np.sin(0.3 * (xx + 0.7 * yy)) + 0.1 * rng.normal(size=(ny, nx))) ** 2
+    bins = G._angle_bin_centers(72)
+    lg = {d: G.local_gradients(G.Gradients2D(img, device=d).ampl) for d in ("cuda", "cpu")}
+    for name in ("G2", "G2_abs", "G2_angle", "G3", "c"):
+        got, ref = lg["cuda"][name].values, lg["cpu"][name].values
+        assert lg["cuda"][name].data.device.type == "cuda"
+        assert np.abs(got - ref).max() <= 1e-11 * np.abs(ref).max(), name
+    cl = np.r_[0, np.arange(10, ny // 4, 16), ny // 4 - 1]
+    cs = np.r_[0, np.arange(10, nx // 4, 16), nx // 4 - 1]
+    tol = dict(rtol=1e-9, atol=1e-12)
+    ref_h, ref_r = (t.numpy() for t in G.streaks_histogram_core(img, cl, cs, 16, bins,
+                                                               device="cpu"))
+    got_h, got_r = G.streaks_histogram_core(img, cl, cs, 16, bins)  # device="cuda"
+    assert got_h.device.type == "cuda"
+    np.testing.assert_allclose(got_h.cpu().numpy(), ref_h, **tol)
+    np.testing.assert_array_equal(got_r.cpu().numpy(), ref_r)
+
+    class Rows:  # a chunked duck array over the image
+        shape, ndim, dtype, chunks = img.shape, 2, img.dtype, ((1,) * ny, (nx,))
+        max_request = 0
+
+        def __getitem__(self, idx):
+            block = img[idx]
+            Rows.max_request = max(Rows.max_request, block.size)
+            return block
+
+    band_h, band_r = G._banded_streaks_hist(Rows(), cl, cs, 16, bins, max_block_px=200 * nx)
+    np.testing.assert_allclose(band_h.cpu().numpy(), ref_h, **tol)
+    np.testing.assert_array_equal(band_r.cpu().numpy(), ref_r)
+    assert 0 < Rows.max_request < img.size
+    da = DimArray(np.stack([img, 0.3 * img]), dims=("pol", "line", "sample"),
+                  coords={"pol": np.array(["VV", "VH"]), "line": np.arange(ny) * 10.0,
+                          "sample": np.arange(nx) * 10.0})
+    kw = dict(windows_sizes=[800, 1600], downscales_factors=[1, 2])
+    got, ref = G.Gradients(da, **kw).histogram, G.Gradients(da, device="cpu", **kw).histogram
+    assert got["weight"].data.device.type == "cuda" and got["weight"].dims == ref["weight"].dims
+    np.testing.assert_allclose(got["weight"].values, ref["weight"].values, **tol)
+    np.testing.assert_array_equal(got["used_ratio"].values, ref["used_ratio"].values)
+    f1 = G.filtering_parameters(img)[4].values
+    np.testing.assert_allclose(f1, G.filtering_parameters(img, device="cpu")[4].values,
+                               rtol=1e-9, atol=1e-12)

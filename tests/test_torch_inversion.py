@@ -424,4 +424,6 @@ def test_port_imports_no_jax():
             "xsarsea_tpu_torch.scripts.bench_kernel_variants", "xsarsea_tpu_torch.dimarray",
             "xsarsea_tpu_torch.interop", "xsarsea_tpu_torch.directions",
             "xsarsea_tpu_torch.detrend", "xsarsea_tpu_torch.windspeed.dsig",
-            "xsarsea_tpu_torch.models.gmf", "xsarsea_tpu_torch.utils"} <= walked
+            "xsarsea_tpu_torch.models.gmf", "xsarsea_tpu_torch.utils",
+            "xsarsea_tpu_torch.utils.staging", "xsarsea_tpu_torch.ops.conv2d",
+            "xsarsea_tpu_torch.gradients"} <= walked

@@ -4,7 +4,8 @@ The port of ``xsarsea_tpu`` (JAX) to PyTorch and NVIDIA Hopper: GMF forward
 models, LUTs, the dual-pol Bayesian wind inversion, whose fused path runs
 hand-written CUDA kernels (``xsarsea_tpu_torch.ops``), and the scene
 preparation around it: wind-direction conventions, NESZ flattening, dsig
-weightings, sigma0 detrending, the sarwing OWI reader and the xarray bridge.
+weightings, sigma0 detrending, the sarwing OWI reader and the xarray bridge;
+and the wind-streak direction analysis (``xsarsea_tpu_torch.gradients``).
 It imports torch and numpy only; ``xsarsea_tpu`` stays the reference its
 tests hold it against.
 """
@@ -28,6 +29,7 @@ __all__ = [
     "to_dataarray",
     "utils",
     "windspeed",
+    "gradients",
 ]
 
 from xsarsea_tpu_torch.dimarray import DimArray, DimDataset
@@ -44,3 +46,4 @@ from xsarsea_tpu_torch.directions import (
 from xsarsea_tpu_torch import utils  # noqa: F401
 from xsarsea_tpu_torch.utils import from_dB, to_dB
 from xsarsea_tpu_torch import windspeed  # noqa: F401
+from xsarsea_tpu_torch import gradients  # noqa: F401

@@ -15,7 +15,7 @@ import torch
 from xsarsea_tpu_torch.dimarray import DimArray, is_chunked
 from xsarsea_tpu_torch.interop import to_dataset, xarray_io
 from xsarsea_tpu_torch.models.base import get_model
-from xsarsea_tpu_torch.utils import as_tensor, compute_device, logger, timing
+from xsarsea_tpu_torch.utils import as_tensor, compute_device, logger, timing, to_host
 
 __all__ = ["sigma0_detrend", "read_sarwing_owi"]
 
@@ -63,7 +63,7 @@ def sigma0_detrend(sigma0, inc_angle, wind_speed_gmf=10.0, wind_dir_gmf=45.0,
                                                   for v in (wspd, phi)))
         ratio = sample / torch.nanmean(sample)
     else:  # tabulated: through the model's LUT interp, on the host
-        sample = model(np.asarray(as_tensor(inc_row, "cpu")), wspd, phi)
+        sample = model(to_host(as_tensor(inc_row, "cpu")), wspd, phi)
         sample_v = np.squeeze(np.asarray(sample))
         ratio = torch.as_tensor(sample_v / np.nanmean(sample_v), device=device)
 
@@ -73,12 +73,12 @@ def sigma0_detrend(sigma0, inc_angle, wind_speed_gmf=10.0, wind_dir_gmf=45.0,
         detrended = np.empty(shape, dtype=np.result_type(raw_s0.dtype, out_dtype))
         rows = max(1, _BLOCK_ELEMS // max(1, shape[1]))
         for r0 in range(0, shape[0], rows):
-            block = torch.as_tensor(np.asarray(raw_s0[r0:r0 + rows]), device=device)
-            detrended[r0:r0 + rows] = (block / ratio[None, :]).cpu().numpy()
+            block = as_tensor(np.asarray(raw_s0[r0:r0 + rows]), device)
+            to_host(block / ratio[None, :], out=detrended[r0:r0 + rows])
     else:
         detrended = as_tensor(raw_s0, device) / ratio[None, :]
         if not isinstance(raw_s0, torch.Tensor):
-            detrended = detrended.cpu().numpy()
+            detrended = to_host(detrended)
 
     if isinstance(sigma0, DimArray):
         out = sigma0.copy(data=detrended)

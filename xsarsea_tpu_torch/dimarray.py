@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xsarsea_tpu_torch.utils.staging import to_device, to_host, torch_dtype
+
 __all__ = ["DimArray", "DimDataset", "is_chunked", "blocked_coord_mean"]
 
 
@@ -48,13 +50,6 @@ def blocked_coord_mean(c, f=2):
     c = np.asarray(c, dtype=np.float64)
     n = (len(c) // f) * f
     return c[:n].reshape(-1, f).mean(axis=1)
-
-
-def _torch_dtype(dtype):
-    """A ``torch.dtype`` for a torch or numpy dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 def _index(data, ax, idx):
@@ -157,7 +152,7 @@ class DimArray:
         """Host numpy copy of the data (a chunked payload is read whole)."""
         data = self.data
         if _is_tensor(data):
-            return data.detach().cpu().numpy()
+            return to_host(data)
         if is_chunked(data) and not hasattr(data, "__array__"):
             return np.asarray(data[0:data.shape[0]])
         return np.asarray(data)
@@ -196,7 +191,7 @@ class DimArray:
         """The payload cast to a numpy dtype (a tensor payload also takes a
         torch dtype)."""
         if _is_tensor(self.data):
-            return self.copy(data=self.data.to(_torch_dtype(dtype)))
+            return self.copy(data=self.data.to(torch_dtype(dtype)))
         return self.copy(data=self.data.astype(dtype))
 
     def to(self, device):
@@ -204,7 +199,7 @@ class DimArray:
         is copied there, the latter read whole)."""
         if _is_tensor(self.data):
             return self.copy(data=self.data.to(device))
-        return self.copy(data=torch.as_tensor(self.values, device=device))
+        return self.copy(data=to_device(self.values, device))
 
     def numpy(self):
         """The payload as a host numpy array (the inverse of :meth:`to`)."""

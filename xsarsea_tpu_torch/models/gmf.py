@@ -19,6 +19,7 @@ import torch
 
 from xsarsea_tpu_torch.dimarray import DimArray, is_chunked
 from xsarsea_tpu_torch.models.base import Model, _grid
+from xsarsea_tpu_torch.utils import to_device, to_host
 
 logger = logging.getLogger("xsarsea_tpu_torch.models.gmf")
 
@@ -92,7 +93,7 @@ class _LazyGmfEval:
                     self._small[id(raw)] = np.asarray(raw[0:raw.shape[0]])
                 raw = self._small[id(raw)]
             raw = np.array(np.broadcast_to(np.asarray(raw), self.shape)[lo:hi])  # a copy
-        return torch.as_tensor(np.ascontiguousarray(raw, dtype=self.dtype), **self._kind)
+        return to_device(raw, self._kind["device"], self._kind["dtype"])
 
     def __getitem__(self, idx):
         if not isinstance(idx, tuple):
@@ -104,7 +105,7 @@ class _LazyGmfEval:
         if step != 1:
             raise IndexError("lazy GMF result does not support strided slices")
         out = self._eval_fn(*(self._block(r, lo, hi) for r in self._raws))
-        return out.cpu().numpy()
+        return to_host(out)
 
     def __array__(self, dtype=None, copy=None):
         out = np.empty(self.shape, dtype=self.dtype)

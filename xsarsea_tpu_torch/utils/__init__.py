@@ -2,8 +2,9 @@
 
 Ported: the dB conversions, the ``timing`` decorator with its host and
 device memory readings, and the device rule of the entry points
-(:func:`resolve_device`, :func:`compute_device`). The config loader, the
-test-data fetcher and the profiler context are not ported yet.
+(:func:`resolve_device`, :func:`compute_device`) and the host staging of
+copies to and from a card (:mod:`xsarsea_tpu_torch.utils.staging`). The config
+loader, the test-data fetcher and the profiler context are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ import time
 import numpy as np
 import torch
 
+from xsarsea_tpu_torch.utils.staging import to_device, to_host
+
 logger = logging.getLogger("xsarsea_tpu_torch")
 logger.addHandler(logging.NullHandler())
 
 __all__ = ["to_dB", "from_dB", "timing", "logger", "device_memory_stats", "resolve_device",
-           "compute_device", "as_tensor"]
+           "compute_device", "as_tensor", "to_device", "to_host"]
 
 
 def to_dB(x, eps=1e-15):
@@ -57,10 +60,8 @@ def compute_device(device, *arrays):
 
 def as_tensor(x, device):
     """``x`` (a tensor or anything numpy reads) as a tensor on ``device``, in
-    the dtype it has."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.as_tensor(np.asarray(x), device=device)
+    the dtype it has (a host array goes to a card through pinned staging)."""
+    return to_device(x, device)
 
 
 def _rss_mb():

@@ -20,7 +20,7 @@ import torch
 
 from xsarsea_tpu_torch.dimarray import DimArray
 from xsarsea_tpu_torch.interop import xarray_io
-from xsarsea_tpu_torch.utils import as_tensor, compute_device
+from xsarsea_tpu_torch.utils import as_tensor, compute_device, to_host
 
 __all__ = ["get_dsig", "get_dsig_wspd", "nesz_flattening"]
 
@@ -49,7 +49,7 @@ def _wrap_like(template, out):
     """``out`` in the kind of ``template``: numpy for numpy, a tensor for a
     tensor, a DimArray (attrs dropped) around either for a DimArray."""
     if not isinstance(_data(template), torch.Tensor):
-        out = out.cpu().numpy()
+        out = to_host(out)
     if isinstance(template, DimArray):
         res = template.copy(data=out)
         res.attrs = {}

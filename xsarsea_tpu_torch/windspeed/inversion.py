@@ -33,14 +33,16 @@ Modes:
   ``mode="exact"``.
 
 ``invert_from_model`` takes and returns ``xarray.DataArray``-like objects
-through :func:`xsarsea_tpu_torch.interop.xarray_io`. Not ported yet: the
-``pallas_exact`` mode (full-grid first pass) and overlapped piece streaming.
+through :func:`xsarsea_tpu_torch.interop.xarray_io`. Scenes larger than a
+piece stream through three overlapped lanes (``_invert_source``). Not ported
+yet: the ``pallas_exact`` mode (full-grid first pass).
 """
 
 from __future__ import annotations
 
 import copy
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
@@ -57,7 +59,7 @@ from xsarsea_tpu_torch.ops.bucketing import (
     bucket_by_value,
     nearest_index_sorted,
 )
-from xsarsea_tpu_torch.utils import logger, timing
+from xsarsea_tpu_torch.utils import logger, staging, timing
 
 __all__ = ["invert_from_model", "invert_pixels", "InversionTables", "prepare_tables"]
 
@@ -527,12 +529,6 @@ def _flat_slice(arr, shape, lo, hi):
     return block[lo - r0 * rest: hi - r0 * rest]
 
 
-def _to_device(a, device, dtype):
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.ascontiguousarray(a, dtype=_np_dtype(dtype)), device=device)
-
-
 def _real_imag(a):
     if isinstance(a, torch.Tensor):
         return (a.real, a.imag) if a.is_complex() else (a, torch.zeros_like(a))
@@ -547,8 +543,14 @@ class _PreparedSource:
         self.n = int(inc.shape[0])
         self._arrs = (inc, s0_co_db, s0_cr_db, dsig_cr, *_real_imag(anc))
 
+    def resident(self, device):
+        """True when every array already is a tensor on ``device``: a piece
+        is then a view, and there is no preparation to overlap."""
+        return all(isinstance(a, torch.Tensor) and a.device.type == device.type
+                   and (device.index is None or a.device == device) for a in self._arrs)
+
     def streams(self, lo, hi, device, dtype):
-        return [_to_device(a[lo:hi], device, dtype) for a in self._arrs]
+        return [staging.to_device(a[lo:hi], device, dtype) for a in self._arrs]
 
 
 class _LazySource:
@@ -598,21 +600,21 @@ class _LazySource:
     def _db(self, arr, lo, hi, device, dtype):
         x = _flat_slice(arr, self.shape, lo, hi)
         if self.device_db:  # linear to the device, log10 there
-            x = _to_device(x, device, dtype)
+            x = staging.to_device(x, device, dtype)
             return 10.0 * torch.log10(x + 1e-15)
         if isinstance(x, torch.Tensor):
-            x = x.detach().cpu().numpy()
+            x = staging.to_host(x)
         x = np.asarray(x, dtype=np.float64)
         with np.errstate(invalid="ignore", divide="ignore"):
             x = 10.0 * np.log10(x + 1e-15)
-        return _to_device(x, device, dtype)
+        return staging.to_device(x, device, dtype)
 
     def streams(self, lo, hi, device, dtype):
         m = hi - lo
         if self.inc_mode == "full":
-            inc = _to_device(_flat_slice(self.inc, self.shape, lo, hi), device, dtype)
+            inc = staging.to_device(_flat_slice(self.inc, self.shape, lo, hi), device, dtype)
         else:
-            vec = _to_device(self._inc_vec, device, dtype)
+            vec = staging.to_device(self._inc_vec, device, dtype)
             idx = lo + torch.arange(m, device=device)
             pos = idx % self._inc_div if self.inc_mode == "sample" else idx // self._inc_div
             inc = vec[pos]
@@ -625,21 +627,84 @@ class _LazySource:
             d = self.dsig_cr
             if tuple(np.shape(d)) != self.shape:
                 d = np.broadcast_to(np.asarray(d), self.shape)
-            dsig = _to_device(_flat_slice(d, self.shape, lo, hi), device, dtype)
+            dsig = staging.to_device(_flat_slice(d, self.shape, lo, hi), device, dtype)
         if self.anc is None:
             anc_re = anc_im = nanv
         else:
-            re, im = _real_imag(_flat_slice(self.anc, self.shape, lo, hi))
-            anc_re, anc_im = _to_device(re, device, dtype), _to_device(im, device, dtype)
+            anc_re, anc_im = (staging.to_device(part, device, dtype) for part in
+                              _real_imag(_flat_slice(self.anc, self.shape, lo, hi)))
         return [inc, s0_co, s0_cr, dsig, anc_re, anc_im]
 
 
+@lru_cache(maxsize=None)
+def _side_streams(device):
+    """The copy-in and the copy-out stream of ``device``, made once: the
+    caching allocator keeps a pool of blocks per stream, so a new stream a
+    call would allocate its pieces anew every time."""
+    return torch.cuda.Stream(device), torch.cuda.Stream(device)
+
+
+class _Lanes:
+    """The streams of the overlapped piece loop on a CUDA device: one for the
+    copies in (and the device side of a piece's preparation), one for the
+    copies out, beside the current stream, which runs the kernels. On the CPU,
+    and for the serial loop, there are none: everything is in program order."""
+
+    def __init__(self, device, overlap):
+        self.device = device
+        self.copy_in = self.copy_out = None
+        if overlap and device.type == "cuda":
+            self.copy_in, self.copy_out = _side_streams(device)
+            # the caller's device-resident inputs may still be in the making
+            self.copy_in.wait_stream(torch.cuda.current_stream(device))
+
+    def prepare(self, source, lo, hi, dtype):
+        """The piece's input tensors, made on the copy-in stream, and the
+        event that says they are ready."""
+        if self.copy_in is None:
+            return source.streams(lo, hi, self.device, dtype), None
+        with torch.cuda.stream(self.copy_in):
+            tensors = source.streams(lo, hi, self.device, dtype)
+            ready = torch.cuda.Event()
+            ready.record()
+        return tensors, ready
+
+    def join(self, tensors, ready):
+        """Make the current stream wait for a prepared piece."""
+        if ready is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(ready)
+        for t in tensors:
+            # made on the copy-in stream, read on this one: the allocator must
+            # not reuse the block before this stream is done with it
+            t.record_stream(current)
+
+
+def _pieces(n, piece):
+    if n <= piece + (piece >> 1):
+        return [(0, n)]
+    return [(lo, min(lo + piece, n)) for lo in range(0, n, piece)]
+
+
 def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", device="cuda",
-                   device_output=False, piece_size=None):
-    """Run the inversion over a piece source, one piece after the other.
+                   device_output=False, piece_size=None, _overlap=True):
+    """Run the inversion over a piece source.
+
+    A scene of several pieces streams through three overlapped lanes with at
+    most two pieces in flight: a worker thread prepares piece k+1 (the host's
+    slicing and f64 dB conversion, the casts into pinned buffers, the copies in
+    on their own stream), the calling thread runs the kernels on piece k, and
+    a second worker moves the results of piece k-1, copied out on a third
+    stream into pinned buffers, into the preallocated outputs. On the CPU the
+    same loop runs without streams. ``_overlap=False`` runs the pieces one
+    after the other on the calling thread, for the tests that hold the lanes
+    to it bit for bit.
 
     Device residency stays O(piece) unless ``device_output=True``, which
-    keeps every piece's results on the device and returns complex tensors.
+    keeps every piece's results on the device and returns complex tensors
+    (then only the preparation overlaps, and nothing does when the inputs are
+    tensors on the device already).
     """
     device = torch.device(device)
     mode = _resolve_mode(mode, tables, device)
@@ -652,24 +717,58 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
     fn = _get_invert_fn(tables, chunk_size, mode, device)
     dsig_t = torch.tensor(dsig_co, dtype=dtype, device=device)
     n = source.n
-    piece = piece_size or (1 << 22)
-    bounds = [(0, n)] if n <= piece + (piece >> 1) else \
-        [(lo, min(lo + piece, n)) for lo in range(0, n, piece)]
+    bounds = _pieces(n, piece_size or (1 << 22))
+    # with the inputs on the device and the results staying there, a piece has
+    # no copy to hide: the lanes would only add their threads' hand-overs
+    resident = device_output and isinstance(source, _PreparedSource) and source.resident(device)
+    overlap = _overlap and len(bounds) > 1 and not resident
+    lanes = _Lanes(device, overlap)
 
-    if device_output:
-        parts = [fn(*source.streams(lo, hi, device, dtype), dsig_t) for lo, hi in bounds]
-        co_re, co_im, du_re, du_im = (torch.cat(p) for p in zip(*parts))
+    def compute(prepared):
+        lanes.join(*prepared)
+        co_re, co_im, du_re, du_im = fn(*prepared[0], dsig_t)
         return torch.complex(co_re, co_im), torch.complex(du_re, du_im)
 
-    ctype = np.complex128 if dtype == torch.float64 else np.complex64
-    wind_co = np.empty(n, dtype=ctype)
-    wind_dual = np.empty(n, dtype=ctype)
-    for lo, hi in bounds:
-        co_re, co_im, du_re, du_im = (o.cpu().numpy()
-                                      for o in fn(*source.streams(lo, hi, device, dtype),
-                                                  dsig_t))
-        wind_co.real[lo:hi], wind_co.imag[lo:hi] = co_re, co_im
-        wind_dual.real[lo:hi], wind_dual.imag[lo:hi] = du_re, du_im
+    parts = []
+    if not device_output:
+        ctype = np.complex128 if dtype == torch.float64 else np.complex64
+        wind_co = np.empty(n, dtype=ctype)
+        wind_dual = np.empty(n, dtype=ctype)
+
+    def drain(copies, lo, hi):
+        copies[0].into(wind_co[lo:hi])
+        copies[1].into(wind_dual[lo:hi])
+
+    if not overlap:
+        for lo, hi in bounds:
+            winds = compute(lanes.prepare(source, lo, hi, dtype))
+            if device_output:
+                parts.append(winds)
+            else:
+                drain([staging.HostCopy(w) for w in winds], lo, hi)
+    else:
+        with ThreadPoolExecutor(max_workers=1) as prep_worker, \
+                ThreadPoolExecutor(max_workers=1) as drain_worker:
+            ahead = prep_worker.submit(lanes.prepare, source, *bounds[0], dtype)
+            drains = []
+            for i, (lo, hi) in enumerate(bounds):
+                prepared = ahead.result()
+                if i + 1 < len(bounds):
+                    ahead = prep_worker.submit(lanes.prepare, source, *bounds[i + 1], dtype)
+                if len(drains) >= 2:
+                    drains[-2].result()  # at most two pieces' results in flight
+                winds = compute(prepared)
+                if device_output:
+                    parts.append(winds)
+                else:
+                    copies = [staging.HostCopy(w, lanes.copy_out) for w in winds]
+                    drains.append(drain_worker.submit(drain, copies, lo, hi))
+            for d in drains:
+                d.result()
+
+    if device_output:
+        co, dual = (torch.cat(p) for p in zip(*parts))
+        return co, dual
     return wind_co, wind_dual
 
 
