@@ -80,14 +80,32 @@ it finishes; any failure exits non-zero:
     stencils and resamplings in float32 within 1e-5 of float64 with TF32
     allowed by the caller, the peak of the mean histogram within one 2.5 deg
     bin of the streaks' gradient direction ``atan2(0.6, 1)``, ``used_ratio``
-    1.0 for interior windows and no non-finite weight.
+    1.0 for interior windows and no non-finite weight;
+11. the ``fused_exact`` mode (K1 on the full 499 x 181 grid in its streamed
+    form, K2 or K3 on a 32-row slab): ``invert_pixels(mode="fused_exact")``
+    on phase 5's scene, device-resident, median of 3 after a warm-up, which
+    must launch the streamed K1 and K2, and on one 2**22-pixel piece of
+    phase 7's own-axes tables, which must launch the streamed K1, K3 and K4;
+    each form against its plain version on a 64 Kpx subsample, on the seam
+    cases (``coarse_seams`` at 181 columns, ``slab_seams`` at 32 rows) and
+    on one piece's arguments, with its times and bound; ``fused_exact``
+    against ``exact`` on 2**16 px, and ``fused`` against ``fused_exact`` on
+    2**20 px, which must not differ. Then the margin sweep
+    (``xsarsea_tpu_torch/scripts/sweep_margin.py``) at its default
+    configuration and two others on 2**22 adversarial pixels;
+    ``parallel.invert_scenes`` on four scenes of different shapes (~2**24 px)
+    with phase 7's tables, no mesh, from host arrays, each scene bit-equal to
+    ``invert_pixels``; and a mesh naming the card twice:
+    ``sharded_invert_pixels`` in ``fused`` mode (data 2) and ``exact`` mode
+    (model 2) bit-equal to one device on 2**16 px, ``sharded_streaks_histogram``
+    (data 2) on phase 10's tile against the one-device core.
 
 Phases 4 and 9 run ``invert_from_model`` through the overlapped piece loop
 (preparation, kernels and result copies of neighbouring pieces at once,
 through pinned buffers) and again through the serial loop: the two results
 must be bit-equal, and both times are printed.
 
-``python3 chip_smoke.py --through N`` (N from 3 to 9) stops after phase N,
+``python3 chip_smoke.py --through N`` (N from 3 to 10) stops after phase N,
 for a quicker look at the phases before it while a kernel is being worked
 on; it prints neither of the two result lines below, which only a whole run
 earns.
@@ -126,6 +144,8 @@ DATA = Path(__file__).resolve().parent / "tests" / "data"
 KERNELS = {  # name: (source, TPU kernel it replaces, position of the feats argument)
     "group_argmin": ("xsarsea_tpu_torch/ops/csrc/group_argmin.cu",
                      "xsarsea_tpu/ops/pallas_inversion.py:467", 4),
+    "group_argmin_streamed": ("xsarsea_tpu_torch/ops/csrc/group_argmin.cu",
+                              "xsarsea_tpu/ops/pallas_inversion.py:467", 4),
     "slab_refine_fused": ("xsarsea_tpu_torch/ops/csrc/slab_refine_fused.cu",
                           "xsarsea_tpu/ops/pallas_inversion.py:1030", 7),
     "slab_refine": ("xsarsea_tpu_torch/ops/csrc/slab_refine.cu",
@@ -174,15 +194,16 @@ def bound(fp32_ops, n_bytes, bf16_ops=0):
 
 def kernel_bound(torch, K, name, args, kwargs, out):
     """The bound of inversion kernel ``name`` on the arguments it was given."""
-    if name == "group_argmin":
+    rows = kwargs.get("n_rows", K.SLAB_ROWS)
+    if name in ("group_argmin", "group_argmin_streamed"):
         fp32 = live_pixels(torch, args[4]) * args[1].numel() * OPS_DIRECT
     elif name == "slab_refine_fused":
-        per_px = K.SLAB_ROWS * args[0].shape[2] * OPS_DIRECT
+        per_px = rows * args[0].shape[2] * OPS_DIRECT
         if kwargs.get("has_cr", True):
             per_px += args[6].numel() * OPS_CROSSPOL
         fp32 = live_pixels(torch, args[7]) * per_px
     elif name == "slab_refine":
-        fp32 = live_pixels(torch, args[3]) * K.SLAB_ROWS * args[0].shape[2] * OPS_DIRECT
+        fp32 = live_pixels(torch, args[3]) * rows * args[0].shape[2] * OPS_DIRECT
     else:  # crosspol_argmin
         fp32 = live_pixels(torch, args[2]) * args[1].numel() * OPS_CROSSPOL
     return bound(fp32, nbytes(torch, *args, out))
@@ -211,6 +232,12 @@ def captured_calls(K):
 
 def plain_version(K, name):
     return getattr(K, f"_{name}_plain")
+
+
+def entry_of(name, kwargs):
+    """The ``kernels`` line's entry for a call of wrapper ``name``: K2 and K3
+    on the fused_exact mode's 32-row slab have entries of their own."""
+    return f"{name}:32_rows" if kwargs.get("n_rows", 48) == 32 else name
 
 
 def hold_against_plain(torch, K, name, args, kwargs, phase):
@@ -315,36 +342,41 @@ def device_inputs(torch, sc, s0_cr_db):
     return inputs
 
 
-def hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, phase):
+def hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, phase, mode="fused"):
     """Every kernel of a fused call on the first ``n_sub`` pixels against
     its plain version on the arguments that call gave it."""
     from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
 
     with captured_calls(K) as calls:
-        invert_pixels(tables, *dev_inputs(0, n_sub), mode="fused", device="cuda")
+        invert_pixels(tables, *dev_inputs(0, n_sub), mode=mode, device="cuda")
     for name, (args, kwargs) in calls.items():
         err, size = hold_against_plain(torch, K, name, args, kwargs, phase)
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        entry = report[entry_of(name, kwargs)]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
         log(f"{phase} {name}: bit-equal to its plain version on {size} outputs "
             f"(feats {tuple(feats_of(name, args).shape)})")
     return calls
 
 
-def hold_on_seams(torch, K, tables, report, phase):
+def hold_on_seams(torch, K, tables, report, phase, n_rows=None):
     """K2 and K3 against their plain versions on the seam cases of their
-    sweep at the LUT's width and height, and at the cases' designed K3
-    answers."""
+    sweep at the LUT's width and height and a slab of ``n_rows`` rows
+    (default 48), and at the cases' designed K3 answers."""
     from xsarsea_tpu_torch.ops.slab_seams import seam_cases
 
-    cases = seam_cases(n_phi=tables.co_lut.shape[2], n_wspd=tables.co_lut.shape[1])
-    block = {"block": K.SLAB_BLOCK}
+    n_rows = n_rows or K.SLAB_ROWS
+    cases = seam_cases(n_phi=tables.co_lut.shape[2], n_wspd=tables.co_lut.shape[1],
+                       n_rows=n_rows)
+    block = {"block": K.SLAB_BLOCK, **({} if n_rows == K.SLAB_ROWS else {"n_rows": n_rows})}
     for name, args, kwargs in (("slab_refine_fused", cases.k2_args("cuda"),
                                 {"has_cr": True, **block}),
                                ("slab_refine", cases.k3_args("cuda"), block)):
         err, size = hold_against_plain(torch, K, name, args, kwargs, phase)
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        entry = report[entry_of(name, kwargs)]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
         line = (f"{phase} {name}: bit-equal to its plain version on the sweep's seam cases "
-                f"({size} outputs, {cases.sband.shape[0]} blocks, width {cases.n_phi})")
+                f"({size} outputs, {cases.sband.shape[0]} blocks, width {cases.n_phi}, "
+                f"{n_rows} slab rows)")
         if name == "slab_refine":
             flat = getattr(K, name)(*args, **kwargs).reshape(-1).cpu().numpy()
             wrong = sum(int(flat[s] != e) for s, e in cases.expected.items())
@@ -411,13 +443,13 @@ def hold_quotient(torch, K, luts, random_pairs, phase):
     log(f"{phase} crosspol quotient: bit-equal to the true divide on {', '.join(notes)}")
 
 
-def device_rate(torch, K, tables, dev, reps):
+def device_rate(torch, K, tables, dev, reps, mode="fused"):
     """Seconds of ``reps`` device-resident fused calls after a warm-up call,
     and the arguments the warm-up gave each kernel."""
     from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
 
     def once():
-        invert_pixels(tables, *dev, mode="fused", device="cuda", device_output=True)
+        invert_pixels(tables, *dev, mode=mode, device="cuda", device_output=True)
         torch.cuda.synchronize()
 
     with captured_calls(K) as calls:
@@ -430,13 +462,13 @@ def device_rate(torch, K, tables, dev, reps):
     return times, calls
 
 
-def fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, phase):
+def fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, phase, mode="fused"):
     """Fused against exact on the card on the first ``n_sub`` pixels: the
     count of differing pixels, the max speed deviation and, for up to 10
     differing pixels, the exact-form cost gap of the fused winner."""
     from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
 
-    fused = invert_pixels(tables, *dev_inputs(0, n_sub), mode="fused", device="cuda")
+    fused = invert_pixels(tables, *dev_inputs(0, n_sub), mode=mode, device="cuda")
     exact = invert_pixels(tables, *dev_inputs(0, n_sub), mode="exact", device="cuda",
                           chunk_size=1024)
     differ = np.zeros(n_sub, bool)
@@ -444,13 +476,13 @@ def fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, phase):
     for f, e in zip(fused, exact):
         differ |= ~((f == e) | (np.isnan(f) & np.isnan(e)))
         dev_max = max(dev_max, float(np.nanmax(np.abs(np.abs(f) - np.abs(e)))))
-    log(f"{phase} fused vs exact on {n_sub} px: {int(differ.sum())} differing pixels, "
+    log(f"{phase} {mode} vs exact on {n_sub} px: {int(differ.sum())} differing pixels, "
         f"cuda_vs_exact_max_dev_m_s {dev_max}")
     idx = np.nonzero(differ)[0][:10]
     gaps, _ = cost_gaps(torch, tables, sc["inc"][idx], sc["s0_co_db"][idx], sc["anc"][idx],
                         fused[0][idx])
     for i, gap in zip(idx, gaps):
-        log(f"  pixel {i}: fused {fused[0][i]:.6f} exact {exact[0][i]:.6f}, "
+        log(f"  pixel {i}: {mode} {fused[0][i]:.6f} exact {exact[0][i]:.6f}, "
             f"exact-form cost gap {gap:.3e}")
 
 
@@ -561,6 +593,7 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
             f"{sweep_note(torch, K, name, args)}")
 
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 7")
+    return tables, s0_cr_db
 
 
 def timed_once(torch, fn):
@@ -1192,7 +1225,229 @@ def phase10(torch, card, seed, tile=4096, class_side=2048, scene=(8192, 16384), 
     log(card)
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
+# ------------------------------- phase 11: fused_exact, the margin sweep, parallel/
+
+EXACT_ROWS = 32  # the fused_exact mode's slab (K.EXACT_SLAB_ROWS)
+EXACT_ENTRIES = ("group_argmin_streamed", "slab_refine_fused:32_rows", "slab_refine:32_rows")
+SWEEP_SMOKE = ((0.8, 4.0, 16), (0.8, 4.0, 8), (1.6, 4.0, 16))  # the default row and two others
+BATCH_SHAPES = ((2048, 2560), (1600, 2304), (2560, 1800), (1900, 1700))  # 16,767,280 px
+
+
+def time_and_hold(torch, K, name, args, kwargs, entry, phase):
+    """A kernel on one piece's arguments: its CUDA-event ms (5 calls after a
+    warm-up), its plain version's ms (one call, whose output it must equal
+    bit for bit) and its bound. Returns the note of the work swept."""
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    entry["ms"] = cuda_ms(lambda: getattr(K, name)(*args, **kwargs), 5)
+    got = getattr(K, name)(*args, **kwargs)
+    entry["plain_ms"], ref = timed_once(
+        torch, lambda: plain_version(K, name)(*args, **kwargs, chunk_blocks=128))
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        bad = int((got != ref).sum()) if got.shape == ref.shape else "all"
+        raise SystemExit(f"{phase}: {name} differs from its plain version on {bad} of "
+                         f"{ref.numel()} outputs of one piece")
+    entry["max_abs_err"] = max(entry["max_abs_err"], float((got.double() - ref.double())
+                                                           .abs().max()))
+    entry["bound_ms"], entry["bound_by"] = kernel_bound(torch, K, name, args, kwargs, got)
+    log(f"{phase} {entry['name']}: bit-equal to its plain version on {ref.numel()} outputs of "
+        f"one piece (feats {tuple(feats_of(name, args).shape)}); kernel {entry['ms']:.3f} ms, "
+        f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
+        f"({entry['bound_by']}){sweep_note(torch, K, name, args)}")
+
+
+def exact_path_launches(torch, K, tables, dev, expect, phase):
+    """The fused_exact mode through ``invert_pixels`` on device-resident
+    inputs, with every count set to 0 just before and read just after:
+    exits unless exactly the kernels ``expect`` were launched, K2 and K3 on
+    32-row slabs. Returns (launches, the arguments each kernel was given)."""
+    from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
+
+    K.reset_launch_counts()
+    with captured_calls(K) as calls:
+        invert_pixels(tables, *dev, mode="fused_exact", device="cuda", device_output=True)
+        torch.cuda.synchronize()
+    launches = K.launch_counts()
+    if {k for k, v in launches.items() if v} != set(expect):
+        raise SystemExit(f"{phase}: fused_exact launched {launches}, expected {expect}")
+    for name in ("slab_refine_fused", "slab_refine"):
+        if name in calls and calls[name][1].get("n_rows") != EXACT_ROWS:
+            raise SystemExit(f"{phase}: {name} was not given a {EXACT_ROWS}-row slab")
+    return launches, calls
+
+
+def differing(a, b):
+    """Pixels of two complex results that differ (NaN equal to NaN)."""
+    return ~((a == b) | (np.isnan(a) & np.isnan(b)))
+
+
+def batch_scenes(torch, get_model, lut_cr, seed):
+    """Phase 11's batch: scenes of ``BATCH_SHAPES`` from ``seed``, incidence
+    rising along the samples over 18-47 deg, uniform speed and direction,
+    copol sigma0 forward-modelled with ``gmf_cmod5n`` (float64, on the card),
+    crosspol sigma0 from the crosspol LUT as in phase 7, a noisy ancillary
+    wind, scalar ``dsig_cr``; as ``invert_scenes`` takes them (dB)."""
+    rng = np.random.default_rng(seed + 11)
+    grids = (np.asarray(lut_cr.coords["incidence"], np.float64),
+             np.asarray(lut_cr.coords["wspd"], np.float64), np.asarray(lut_cr.values, np.float64))
+    scenes = []
+    for ny, nx in BATCH_SHAPES:
+        inc = np.repeat(np.linspace(18.0, 47.0, nx)[None, :], ny, 0)
+        wspd = rng.uniform(0.5, 45.0, (ny, nx))
+        phi = rng.uniform(0.0, 360.0, (ny, nx))
+        dev = [torch.as_tensor(a, device="cuda") for a in (inc, wspd, phi)]
+        s0_co = get_model("gmf_cmod5n")(*dev, broadcast=True).cpu().numpy()
+        s0_cr_db = bilinear(*grids, inc, np.clip(wspd, 3.0, 80.0))
+        anc = (wspd + rng.normal(0, 1.5, (ny, nx))).clip(0.2) * np.exp(1j * np.deg2rad(phi))
+        scenes.append(dict(inc=inc, sigma0_co_db=10 * np.log10(s0_co + 1e-15),
+                           sigma0_cr_db=10 * np.log10(10.0 ** (s0_cr_db / 10.0) + 1e-15),
+                           dsig_cr=0.1, ancillary_wind=anc))
+    return scenes
+
+
+def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps):
+    """fused_exact on the bench scene and on the own-axes tables, its kernel
+    forms against their plain versions; the margin sweep's default row and
+    two others; ``invert_scenes`` on one card; a mesh naming the card twice."""
+    from xsarsea_tpu_torch import gradients as G
+    from xsarsea_tpu_torch import parallel as par
+    from xsarsea_tpu_torch.models import get_model
+    from xsarsea_tpu_torch.ops import coarse_seams
+    from xsarsea_tpu_torch.scripts import sweep_margin
+    from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
+
+    own_tables, own_s0_cr_db = own
+    for name in EXACT_ENTRIES:
+        wrapper = name.split(":")[0]
+        report[name] = {"name": name, "route": "cuda", "source": KERNELS[wrapper][0],
+                        "replaces": KERNELS[wrapper][1], "launches": 0, "max_abs_err": 0.0,
+                        "library_ms": None, **report.get(name, {})}
+    dev_inputs = device_inputs(torch, sc, sc["s0_cr_db"])
+    own_inputs = device_inputs(torch, sc, own_s0_cr_db)
+
+    # (a) the path: fused_exact on the bench scene, then on the own-axes
+    # tables (one 2**22-pixel piece), each with launch counts
+    t0 = time.perf_counter()
+    launches, calls = exact_path_launches(torch, K, tables, dev_inputs(0, n),
+                                          ("group_argmin_streamed", "slab_refine_fused"),
+                                          "phase 11")
+    report["group_argmin_streamed"]["launches"] = launches["group_argmin_streamed"]
+    report["slab_refine_fused:32_rows"]["launches"] = launches["slab_refine_fused"]
+    own_launches, own_calls = exact_path_launches(
+        torch, K, own_tables, own_inputs(0, 1 << 22),
+        ("group_argmin_streamed", "slab_refine", "crosspol_argmin"), "phase 11")
+    report["group_argmin_streamed"]["launches"] += own_launches["group_argmin_streamed"]
+    report["slab_refine:32_rows"]["launches"] = own_launches["slab_refine"]
+    log(f"phase 11 fused_exact launches: {launches} on {n} px (one axis), {own_launches} on "
+        f"{1 << 22} px (own axes), in {time.perf_counter() - t0:.1f} s")
+    times, _ = device_rate(torch, K, tables, dev_inputs(0, n), reps, mode="fused_exact")
+    log(f"phase 11 invert_pixels(mode='fused_exact') device-resident f32: "
+        f"{n / statistics.median(times) / 1e6:.3f} Mpx/s (median of {reps}: "
+        f"{[round(t, 4) for t in times]} s for {n} px)")
+
+    # the kernel forms against their plain versions: subsamples, seams, pieces
+    hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 11", "fused_exact")
+    hold_on_subsample(torch, K, own_tables, own_inputs, n_sub, report, "phase 11",
+                      "fused_exact")
+    cases = coarse_seams.coarse_seam_cases(tables.co_lut.shape[2])
+    err, size = hold_against_plain(torch, K, "group_argmin_streamed", cases.args("cuda"),
+                                   {"block": K.GROUP_BLOCK}, "phase 11")
+    got = K.group_argmin_streamed(*cases.args("cuda")).reshape(-1).cpu().numpy()
+    wrong = sum(int(got[s] != e) for s, e in cases.expected.items())
+    if wrong:
+        raise SystemExit(f"phase 11: group_argmin_streamed misses {wrong} of the seam cases' "
+                         "designed answers")
+    log(f"phase 11 group_argmin_streamed: bit-equal to its plain version on K1's seam cases "
+        f"({size} outputs, {tables.co_lut.shape[2]} columns, {cases.n_groups} groups), and at "
+        f"their {len(cases.expected)} designed answers")
+    hold_on_seams(torch, K, tables, report, "phase 11", n_rows=EXACT_ROWS)
+    time_and_hold(torch, K, "group_argmin_streamed", *calls["group_argmin_streamed"],
+                  report["group_argmin_streamed"], "phase 11")
+    time_and_hold(torch, K, "slab_refine_fused", *calls["slab_refine_fused"],
+                  report["slab_refine_fused:32_rows"], "phase 11")
+    time_and_hold(torch, K, "slab_refine", *own_calls["slab_refine"],
+                  report["slab_refine:32_rows"], "phase 11")
+
+    # fused_exact against exact; fused against fused_exact (the gate)
+    fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 11", mode="fused_exact")
+    fe, fu = (invert_pixels(tables, *dev_inputs(0, n_cmp), mode=m, device="cuda")
+              for m in ("fused_exact", "fused"))
+    diff = differing(fe[0], fu[0]) | differing(fe[1], fu[1])
+    log(f"phase 11 fused vs fused_exact on the first {n_cmp} px: {int(diff.sum())} differing "
+        f"pixels (gate: 0)")
+    if diff.any():
+        for i in np.nonzero(diff)[0][:10]:
+            log(f"  pixel {i}: fused {fu[0][i]:.6f} / {fu[1][i]:.6f}, fused_exact "
+                f"{fe[0][i]:.6f} / {fe[1][i]:.6f}")
+        raise SystemExit("phase 11: fused differs from fused_exact on the bench scene")
+    done_a = time.perf_counter()
+    log(f"phase 11 (a) in {done_a - t0:.1f} s")
+
+    # (b) the margin sweep's default row and two others
+    res = sweep_margin.main(n=1 << 22, configs=SWEEP_SMOKE, reps=2,
+                            log=lambda line: log(f"phase 11 sweep_margin: {line}"))
+    if res["rows"][0]["config"] != sweep_margin.DEFAULT:
+        raise SystemExit("phase 11: the sweep's first row is not the default configuration")
+    done_b = time.perf_counter()
+    log(f"phase 11 (b) in {done_b - done_a:.1f} s")
+
+    # (c) invert_scenes on one card: four scenes of different shapes, no mesh
+    lut_cr = get_model(UNFUSED_MODELS[1]).to_lut(units="dB")
+    scenes = batch_scenes(torch, get_model, lut_cr, seed)
+    n_batch = sum(s["inc"].size for s in scenes)
+    K.reset_launch_counts()
+    outs, seconds = host_seconds(torch, lambda: par.invert_scenes(own_tables, scenes))
+    launches = K.launch_counts()
+    if not all(launches[k] for k in ("group_argmin", "slab_refine", "crosspol_argmin")):
+        raise SystemExit(f"phase 11: invert_scenes launched {launches}")
+    for k, (scene, (co, dual)) in enumerate(zip(scenes, outs)):
+        ref = invert_pixels(own_tables, *(scene[f].reshape(-1) for f in (
+            "inc", "sigma0_co_db", "sigma0_cr_db")), np.full(scene["inc"].size, 0.1),
+            scene["ancillary_wind"].reshape(-1), device="cuda")
+        if co.shape != scene["inc"].shape or not same_bits(co.reshape(-1), ref[0]) \
+                or not same_bits(dual.reshape(-1), ref[1]):
+            raise SystemExit(f"phase 11: invert_scenes differs from invert_pixels on scene {k}")
+    log(f"phase 11 invert_scenes, {len(scenes)} scenes {list(BATCH_SHAPES)} ({n_batch} px), "
+        f"{UNFUSED_MODELS} high-res, no mesh, host arrays in and out: {seconds:.4f} s = "
+        f"{n_batch / seconds / 1e6:.3f} Mpx/s, launches {launches}; each scene bit-equal to "
+        f"invert_pixels")
+    del scenes, outs
+    done_c = time.perf_counter()
+    log(f"phase 11 (c) in {done_c - done_b:.1f} s")
+
+    # (d) a mesh naming the card twice: a layout check, not a speed-up
+    twice = ["cuda:0", "cuda:0"]
+    args = (sc["inc"][:n_sub], sc["s0_co_db"][:n_sub], sc["s0_cr_db"][:n_sub],
+            sc["dsig_cr"][:n_sub], sc["anc"][:n_sub])
+    for mode, shape in (("fused", (2, 1)), ("exact", (1, 2))):
+        got = par.sharded_invert_pixels(tables, *args, mesh=par.make_mesh(*shape, devices=twice),
+                                        mode=mode)
+        ref = invert_pixels(tables, *args, mode=mode, device="cuda")
+        if not all(same_bits(g, r) for g, r in zip(got, ref)):
+            raise SystemExit(f"phase 11: sharded_invert_pixels({mode}, data {shape[0]}, model "
+                             f"{shape[1]}) differs from one device")
+        log(f"phase 11 sharded_invert_pixels mode={mode}, mesh data {shape[0]} x model "
+            f"{shape[1]} on one card: bit-equal to one device on {n_sub} px")
+    win, tile = 40, 4096
+    centers = np.arange(win // 2, tile // 4 - win // 2, win, dtype=np.int32)
+    bins = G._angle_bin_centers(72).astype(np.float32)
+    img = synthetic_tile(tile, tile, seed + 1)
+    w, r = par.sharded_streaks_histogram(img, centers, centers, win, bins,
+                                         par.make_mesh(2, 1, devices=twice))
+    ref_w, ref_r = (t.cpu().numpy() for t in G.streaks_histogram_core(
+        torch.as_tensor(img, device="cuda"), centers, centers, win, bins))
+    dev = max_dev(w.reshape(ref_w.shape), ref_w)
+    log(f"phase 11 sharded_streaks_histogram, data 2 on one card, {tile} x {tile} px: "
+        f"{dev:.3e} of the largest weight from the one-device core (tolerance "
+        f"{STREAKS_RTOL_PATHS:.0e}: float32 sums in any order)")
+    if not dev <= STREAKS_RTOL_PATHS or not np.array_equal(r.reshape(ref_r.shape), ref_r):
+        raise SystemExit("phase 11: the line-sharded streaks differ from the one-device core")
+    log(f"phase 11 (d) in {time.perf_counter() - done_c:.1f} s")
+    log("phase 11 card (nvidia-smi name, power.limit):")
+    log(card)
+
+
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=11, seed=0):
     import torch
 
     if not torch.cuda.is_available():
@@ -1215,7 +1470,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
-        if phase.split()[1] == str(through) and through < 10:
+        if phase.split()[1] == str(through) and through < 11:
             log(f"stopped after phase {through}, as asked: no result line")
             raise SystemExit(0)
 
@@ -1311,7 +1566,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
 
     # phase 7: the unfused tail, on LUT-file models with their own incidence axes
     with tempfile.TemporaryDirectory() as tmp:
-        phase7(torch, K, sc, n, n_sub, n_rms, reps, report, Path(tmp))
+        own = phase7(torch, K, sc, n, n_sub, n_rms, reps, report, Path(tmp))
     done("phase 7")
 
     # phase 8: the experiment drivers (K5 cost forms, K6 coarse-pass variants)
@@ -1326,6 +1581,10 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
     phase10(torch, card, seed)
     done("phase 10")
 
+    # phase 11: the fused_exact mode, the margin sweep, parallel/ on one card
+    phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_rms, reps)
+    done("phase 11")
+
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1335,8 +1594,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=10, seed=0):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--through", type=int, default=10, choices=range(3, 11), metavar="N",
-                        help="stop after phase N (3-9); the default runs all ten phases")
+    parser.add_argument("--through", type=int, default=11, choices=range(3, 12), metavar="N",
+                        help="stop after phase N (3-10); the default runs all eleven phases")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the scenes (default 0, which phase 4's RMS gate expects)")
     cli = parser.parse_args()

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card, against their plain PyTorch versions and
 the exact path; the scene-preparation functions and the wind-streak path on
 the card against their CPU runs; the overlapped piece loop on its streams
-against the serial one. Needs a CUDA device and nvcc; skipped elsewhere.
+against the serial one; the fused_exact mode (K1's streamed form, 32-row
+slabs) and a mesh naming the card twice. Needs a CUDA device and nvcc;
+skipped elsewhere.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -694,3 +696,173 @@ def test_streaks_card_against_cpu(cuda):
     f1 = G.filtering_parameters(img)[4].values
     np.testing.assert_allclose(f1, G.filtering_parameters(img, device="cpu")[4].values,
                                rtol=1e-9, atol=1e-12)
+
+
+# ------------------------------------------- fused_exact: K1 streamed, 32-row slabs
+
+def _full_grid_operands(rng, n_inc=3, n_rows=499, n_cols=181, n_blocks=12):
+    """K1 operands on a full-size grid (rows grouped by 16), with NaN entries,
+    a NaN row, exact ties across the streamed form's 16-row chunks and its
+    row chains, and padding; ``expected``: slot -> designed group."""
+    lut = rng.uniform(-35, 0, (n_inc, n_rows, n_cols)).astype(np.float32)
+    u = rng.uniform(-12, 12, (n_rows, n_cols)).astype(np.float32)
+    v = rng.uniform(0, 12, (n_rows, n_cols)).astype(np.float32)
+    lut[1, 100, 7] = np.nan
+    lut[2, 200] = np.nan
+    row_group = (np.arange(n_rows) // K.WGROUP).astype(np.int32)
+    n = n_blocks * K.GROUP_BLOCK
+    feats = np.stack([rng.uniform(-35, 0, n), rng.uniform(-12, 12, n) * 0.5,
+                      rng.uniform(0, 12, n) * 0.5, np.full(n, 10.0)], 1).astype(np.float32)
+    band = rng.integers(0, n_inc, n_blocks)
+    band[0] = 0
+    expected = {}
+    # (row, col) pairs holding one value: across chunks (15/16), chains (rows
+    # mod 4), far apart, the grid's last row and first entry
+    ties = [[(15, 3), (16, 3)], [(47, 180), (33, 2)], [(498, 100), (250, 100)],
+            [(0, 0), (480, 50)], [(17, 8), (18, 8), (19, 9)]]
+    for k, cells in enumerate(ties):
+        (r1, c1), rest = cells[0], cells[1:]
+        for r, c in rest:
+            lut[0, r, c], u[r, c], v[r, c] = lut[0, r1, c1], u[r1, c1], v[r1, c1]
+        for rep in range(4):  # in four 32-pixel groups of block 0
+            s = 32 * (2 * rep) + 5 * k + rep
+            r, c = cells[rep % len(cells)]
+            feats[s] = lut[0, r, c], u[r, c] * 0.5, v[r, c] * 0.5, 10.0
+            expected[s] = min(r // K.WGROUP for r, _ in cells)
+    feats[K.GROUP_BLOCK + 40:2 * K.GROUP_BLOCK] = np.nan  # padding, mid-group
+    feats[5 * K.GROUP_BLOCK:6 * K.GROUP_BLOCK] = np.nan  # a padding-only block
+    feats[7 * K.GROUP_BLOCK + 3, 3] = np.inf  # no finite cost: the last group
+    expected[7 * K.GROUP_BLOCK + 3] = row_group[-1]
+    return (lut, u * 0.5, v * 0.5, row_group, feats, band.astype(np.int64),
+            int(row_group[-1]) + 1), expected
+
+
+@pytest.mark.parametrize("n_cols", [19, 46, 181])
+def test_k1_streamed_bit_equal_to_plain_version(cuda, n_cols):
+    """K1's streamed form against its plain version, and the staged form
+    against the same answers where the grid fits it: on the coarse seam
+    cases at the width given, and on a full-size 499 x 181 grid with ties
+    across the stream's chunks and chains, NaN entries and padding."""
+    cases = coarse_seam_cases(n_cols)
+    K.reset_launch_counts()
+    args = cases.args(cuda)
+    got = K.group_argmin_streamed(*args)
+    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, K.group_argmin(*args))
+    assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
+    if n_cols == 181:
+        ops, expected = _full_grid_operands(np.random.default_rng(31))
+        assert not K.k1_staged_fits(*ops[1].shape)
+        args = (*(torch.as_tensor(a, device=cuda) for a in ops[:6]), ops[6])
+        got = K.group_argmin_streamed(*args)
+        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        assert not _wrong(got.reshape(-1).cpu().numpy(), expected)
+        with pytest.raises(ValueError, match="does not fit"):
+            K.group_argmin(*args)
+    counts = K.launch_counts()
+    assert counts["group_argmin"] == 1 and counts["group_argmin_streamed"] == 1 + (n_cols == 181)
+
+
+@pytest.mark.parametrize("n_phi", [37, 72, 181])
+def test_k2_k3_at_32_rows_bit_equal_on_the_sweeps_seams(cuda, n_phi):
+    """K2 and K3 on 32-row slabs (the fused_exact mode's) against their plain
+    versions and the designed answers, on the seam cases built for 32 rows;
+    the slab start is checked against the slab's height."""
+    cases = seam_cases(n_phi=n_phi, n_rows=K.EXACT_SLAB_ROWS)
+    args2, args3 = cases.k2_args(cuda), cases.k3_args(cuda)
+    got2 = K.slab_refine_fused(*args2, n_rows=32)
+    got3 = K.slab_refine(*args3, n_rows=32)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=32)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got2, ref2) and torch.equal(got3, ref3)
+    flat = got3.reshape(-1).cpu().numpy()
+    assert all(flat[s] == e for s, e in cases.expected.items())
+    wp = args3[0].shape[1]
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    feats4 = torch.zeros((128, 4), device=cuda)
+    K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 32), one, n_rows=32)
+    with pytest.raises(ValueError, match="srow0"):
+        K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 31), one, n_rows=32)
+    with pytest.raises(ValueError, match="n_rows"):
+        K.slab_refine(*args3[:3], feats4, one * 0, one * 0, one, n_rows=wp + 8)
+
+
+def _gmf_pixels(n, seed):
+    rng = np.random.default_rng(seed)
+    inc = rng.uniform(18.0, 47.0, n)
+    speed = rng.uniform(0.5, 40.0, n)
+    phi = rng.uniform(0.0, 360.0, n)
+    s0_co = 10 * np.log10(get_model("gmf_cmod5n")(inc, speed, phi, broadcast=True).numpy()
+                          + 1e-15)
+    s0_cr = 10 * np.log10(get_model("gmf_s1_v2")(inc, speed, broadcast=True).numpy() + 1e-15)
+    anc = (speed + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * np.deg2rad(phi))
+    inc[0] = np.nan
+    s0_co[1] = np.nan
+    return inc, s0_co, s0_cr, np.full(n, 0.1), anc
+
+
+@pytest.mark.parametrize("cross_axis", ["shared", "own"])
+def test_fused_exact_equals_exact_on_card(cuda, cross_axis):
+    """``fused_exact`` on the card: K1 on the full grid (streamed at the
+    high-res grid, staged where the grid fits), K2 or K3 + K4 on 32-row
+    slabs; the exact path's winds up to the phi tie, the fused mode's, and
+    the CPU run's winners."""
+    kw = dict(inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    cr_kw = kw if cross_axis == "shared" else {**kw, "inc_step": 0.7}
+    tables = InversionTables(get_model("gmf_cmod5n").to_lut(units="dB", **kw),
+                             get_model("gmf_s1_v2").to_lut(units="dB", **cr_kw))
+    args = _gmf_pixels(4000, 5)
+    K.reset_launch_counts()
+    got = invert_pixels(tables, *args, mode="fused_exact", device=cuda)
+    counts = K.launch_counts()
+    tail = ("slab_refine_fused",) if cross_axis == "shared" else ("slab_refine",
+                                                                  "crosspol_argmin")
+    assert counts["group_argmin_streamed"] >= 1 and min(counts[k] for k in tail) >= 1
+    exact = invert_pixels(tables, *args, mode="exact", device=cuda)
+    fused = invert_pixels(tables, *args, mode="fused", device=cuda)
+    cpu = invert_pixels(tables, *args, mode="fused_exact", device="cpu")
+    for g, e, f, c in zip(got, exact, fused, cpu):
+        assert_equal_modulo_pi_ties(g, e)
+        assert _same_bits(g, f)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(c))
+        ok = ~np.isnan(c)
+        assert (np.abs(g[ok] - c[ok]) <= 2.0 ** -21 * np.abs(c[ok])).all()
+    hr = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=torch.float32)  # 499 x 181
+    K.reset_launch_counts()
+    hr_got = invert_pixels(hr, *args, mode="fused_exact", device=cuda)
+    assert K.launch_counts()["group_argmin_streamed"] >= 1
+    for g, e in zip(hr_got, invert_pixels(hr, *args, mode="exact", device=cuda)):
+        assert_equal_modulo_pi_ties(g, e)
+
+
+def test_sharded_invert_pixels_on_one_card_twice(cuda):
+    """A mesh naming the card twice: the sharded fused and exact paths give
+    the one-device results bit for bit, and the line-sharded streaks the
+    one-device core's."""
+    from xsarsea_tpu_torch import gradients as G
+    from xsarsea_tpu_torch import parallel as par
+
+    tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=torch.float32, inc_step=0.5,
+                            wspd_step=0.2, phi_step=2.5)
+    args = _gmf_pixels(5000, 6)
+    twice = ["cuda:0", "cuda:0"]
+    for mode, shape in (("fused", (2, 1)), ("fused_exact", (2, 1)), ("exact", (1, 2)),
+                        ("exact", (2, 1))):
+        got = par.sharded_invert_pixels(tables, *args, mesh=par.make_mesh(*shape, devices=twice),
+                                        mode=mode)
+        ref = invert_pixels(tables, *args, mode=mode, device=cuda)
+        for g, r in zip(got, ref):
+            assert _same_bits(g, r), (mode, shape)
+    rng = np.random.default_rng(7)
+    img = np.abs(1.0 + 0.1 * rng.normal(size=(1024, 768))) + 0.01
+    cl, cs = np.arange(8, 248, 10), np.arange(8, 184, 10)
+    bins = G._angle_bin_centers(72)
+    w, r = par.sharded_streaks_histogram(img, cl, cs, 16, bins,
+                                         par.make_mesh(2, 1, devices=twice))
+    ref_w, ref_r = (t.cpu().numpy() for t in G.streaks_histogram_core(img, cl, cs, 16, bins))
+    np.testing.assert_allclose(w.reshape(ref_w.shape), ref_w, rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(r.reshape(ref_r.shape), ref_r)

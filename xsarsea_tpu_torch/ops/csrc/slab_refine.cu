@@ -7,8 +7,9 @@
 // runs re-bucketed by the crosspol axis (K4, crosspol_argmin.cu).
 //
 // One CUDA block of 128 threads per 128-pixel bucket block; every pixel of a
-// block shares one (incidence band, wind-speed group), hence one 48-row x
-// all-phi LUT slab. The sweep is xs::slab::sweep (inversion_common.cuh), shared
+// block shares one (incidence band, wind-speed group), hence one slab of
+// n_rows x all-phi LUT entries (48 rows in the fused mode, 32 in
+// fused_exact). The sweep is xs::slab::sweep (inversion_common.cuh), shared
 // with K2: four pixels a thread, one row chain a warp (rows r = w mod 4), the
 // slab's LUT, u and v rows streamed through shared memory 8 rows at a time,
 // and 32-pixel groups of padding (all s0 NaN) not swept. The first minimum
@@ -21,7 +22,7 @@
 // The caller clips both sentinels to the last grid cell. Blocks that hold only
 // padding (vmask == 0) write 0; nothing reads them.
 //
-// Bound on the H100: FP32 issue, as K2. Per pixel 48 x 181 = 8,688 entries x
+// Bound on the H100: FP32 issue, as K2. Per pixel (48 rows) 48 x 181 = 8,688 entries x
 // 9 FP32 operations plus the compare (10 counted; none may fuse into an FMA,
 // so half the 67 TFLOP/s peak is the ceiling). Issued per entry and pixel:
 // the 9 and a NaN-propagating min, plus a quarter of a compare, a min and an

@@ -3,8 +3,10 @@
 // Replaces xsarsea_tpu/ops/pallas_inversion.py:slab_refine_fused_pallas
 // (bodies _slab_cr_block and _slab_sweep). One CUDA block of 128 threads per
 // 128-pixel bucket block; every pixel of a block shares one (incidence band,
-// wind-speed group), hence one 48-row x all-phi LUT slab. Blocks that hold
-// only padding (vmask == 0) write zeros and stop.
+// wind-speed group), hence one slab of n_rows LUT rows x all phi columns: 48
+// rows in the fused mode, 32 in fused_exact (any height the sweep's 8-row
+// chunks cover). Blocks that hold only padding (vmask == 0) write zeros and
+// stop.
 //
 // The copol sweep is xs::slab::sweep (inversion_common.cuh), shared with K3:
 // four pixels a thread, one row chain a warp (rows r = w mod 4) merged by
@@ -25,7 +27,7 @@
 // was not swept included (dual-pol data can miss copol alone); with a NaN
 // crosspol sigma0 every crosspol cost is NaN and it gives 0.
 //
-// Bound on the H100: FP32 issue. Per pixel 48 x 181 = 8,688 entries x 10
+// Bound on the H100: FP32 issue. Per pixel (48-row slab) 48 x 181 = 8,688 entries x 10
 // counted FP32 operations (see slab_refine.cu), then 771 crosspol entries x 8.
 // Device-memory traffic is ~32 B/px in and 16 B/px out.
 #include "inversion_common.cuh"

@@ -4,14 +4,18 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
 
 * K1 :func:`group_argmin` replaces ``copol_group_argmin_pallas``: per
   256-pixel block sharing one incidence band, the direct-form cost over a
-  coarse (~0.8 m/s x 4 deg) grid, the minimum per wind-speed group
-  (``WGROUP`` LUT rows) and the first-minimum group per pixel. The kernel
-  deals the groups to four chains a pixel and merges them by (minimum,
-  group).
+  grid of LUT rows and columns, the minimum per wind-speed group
+  (``WGROUP`` LUT rows) and the first-minimum group per pixel. The grid is
+  the fused mode's coarse one (~0.8 m/s x 4 deg), held whole in shared
+  memory; :func:`group_argmin_streamed`, its second form, takes a grid too
+  large for that, the fused_exact mode's full one, streamed through shared
+  memory 16 rows at a time. Both deal the work to four chains a pixel and
+  merge them by (minimum, group).
 * K2 :func:`slab_refine_fused` replaces ``slab_refine_fused_pallas``: per
-  128-pixel block sharing one (band, group), the direct-form cost over a
-  ``SLAB_ROWS`` x all-phi LUT slab with numpy's first-minimum rule in
-  (wspd-major, phi-minor) order, the decode of the winner to (wspd, phi)
+  128-pixel block sharing one (band, group), the direct-form cost over an
+  ``n_rows`` x all-phi LUT slab (``SLAB_ROWS`` = 48 in the fused mode,
+  ``EXACT_SLAB_ROWS`` = 32 in fused_exact) with numpy's first-minimum rule
+  in (wspd-major, phi-minor) order, the decode of the winner to (wspd, phi)
   and the crosspol 1-D argmin over the band's crosspol row.
 * K3 :func:`slab_refine` replaces ``slab_refine_pallas``: K2's slab sweep
   alone, emitting the winner's flat index into the (W, P) grid with the
@@ -58,6 +62,8 @@ from xsarsea_tpu_torch.ops.bucketing import DEFAULT_BLOCK as GROUP_BLOCK
 
 __all__ = [
     "CR_BLOCK",
+    "EXACT_SLAB_MARGIN",
+    "EXACT_SLAB_ROWS",
     "GROUP_BLOCK",
     "KERNELS",
     "SLAB_BLOCK",
@@ -73,6 +79,8 @@ __all__ = [
     "crosspol_quotient",
     "crosspol_quotient_sweep",
     "group_argmin",
+    "group_argmin_streamed",
+    "k1_staged_fits",
     "launch_counts",
     "reset_launch_counts",
     "slab_refine",
@@ -82,10 +90,16 @@ __all__ = [
 WGROUP = 16  # wspd rows per group: K1's output unit, K2's bucketing unit
 SLAB_MARGIN = 16  # refine window half-width in wspd rows around the group
 SLAB_ROWS = WGROUP + 2 * SLAB_MARGIN  # 48 rows: [16g-16, 16g+32)
+# the fused_exact mode's window around a group found on the full grid
+# (xsarsea_tpu/ops/pallas_inversion.py:538)
+EXACT_SLAB_MARGIN = 8
+EXACT_SLAB_ROWS = WGROUP + 2 * EXACT_SLAB_MARGIN  # 32 rows: [16g-8, 16g+24)
 SLAB_BLOCK = 128  # pixels per K2/K3 block (one (band, group) each)
 CR_BLOCK = 256  # pixels per K4 block (one crosspol band each)
 _PAD_LUT = 1e19  # padded LUT rows: cost overflows to +inf, never chosen
 _NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
+_SMEM_OPTIN = 227 * 1024  # dynamic shared memory a block may opt in to on sm_90
+_PLAIN_ELEMENTS = 1 << 27  # costs a plain version materializes at once
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # K5 and K6 (ops/experiment_kernels.py) build into the same library
@@ -115,9 +129,9 @@ def build_direct_arrays(lut_db, u, v):
     v_half (Wp, P))`` f32.
 
     W is padded to ``Wp = ((W + 63) // 8 + 1) * 8`` with ``1e19`` LUT rows
-    (their cost overflows to +inf), so every 48-row slab start
-    ``clip(16g - 16, 0, Wp - 48)`` reads real or padding rows only. u and v
-    are stored halved: ``u/2 - ma/2`` rounds exactly as ``(u - ma)/2``.
+    (their cost overflows to +inf), so every slab start ``clip(16g - margin,
+    0, Wp - n_rows)`` (48 or 32 rows) reads real or padding rows only. u and
+    v are stored halved: ``u/2 - ma/2`` rounds exactly as ``(u - ma)/2``.
     """
     lut_db = np.asarray(lut_db, dtype=np.float32)
     n_inc, n_wspd, n_phi = lut_db.shape
@@ -181,9 +195,16 @@ def _cost(lut, u_half, v_half, s0, ma2, mz2, inv_dsig):
     return (t1 + t2) + t3
 
 
+def _chunk(chunk_blocks, per_block):
+    """Blocks a plain version takes at once: at most ``chunk_blocks``, and
+    at most ``_PLAIN_ELEMENTS`` costs (the full grid's are 23 M a block)."""
+    return max(1, min(chunk_blocks, _PLAIN_ELEMENTS // max(1, per_block)))
+
+
 def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
                         block, chunk_blocks=16):
     n_blocks = band_of_block.shape[0]
+    chunk_blocks = _chunk(chunk_blocks, block * u_half.numel())
     inf = float("inf")
     f = feats.reshape(n_blocks, block, 4)
     # blocks of NaN (padding) rows have no finite cost: their answer is known
@@ -206,22 +227,21 @@ def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, 
 
 def _direct_slab_cost(lut_pad, u_half, v_half):
     """The direct-form slab cost ``cost(band, rows, fe)``: for blocks with
-    LUT bands ``band`` (nb,), slab rows ``rows`` (nb, SLAB_ROWS) and
-    features ``fe`` (nb, block, >=4, 1, 1), the costs (nb, block,
-    SLAB_ROWS, P)."""
+    LUT bands ``band`` (nb,), slab rows ``rows`` (nb, n_rows) and features
+    ``fe`` (nb, block, >=4, 1, 1), the costs (nb, block, n_rows, P)."""
     def cost(band, rows, fe):
         return _cost(lut_pad[band[:, None], rows][:, None], u_half[rows][:, None],
                      v_half[rows][:, None], fe[:, :, 0], fe[:, :, 1], fe[:, :, 2], fe[:, :, 3])
     return cost
 
 
-def _slab_argmin_plain(slab_cost, fb, band, r0):
+def _slab_argmin_plain(slab_cost, fb, band, r0, n_rows=SLAB_ROWS):
     """The slab sweep of K2, K3 and K5 for the blocks ``band``/``r0`` (nb,)
-    with features ``fb`` (nb, block, >=4): per pixel the first strict
-    minimum's flat index within the slab, whether it is a finite cost, and
-    whether any cost is NaN (the reference's NaN-propagating min poisons
-    it)."""
-    rows = r0[:, None] + torch.arange(SLAB_ROWS, device=fb.device)  # (nb, SLAB_ROWS)
+    with features ``fb`` (nb, block, >=4) over ``n_rows`` slab rows: per
+    pixel the first strict minimum's flat index within the slab, whether it
+    is a finite cost, and whether any cost is NaN (the reference's
+    NaN-propagating min poisons it)."""
+    rows = r0[:, None] + torch.arange(n_rows, device=fb.device)  # (nb, n_rows)
     j = slab_cost(band, rows, fb[:, :, :, None, None])
     j = j.reshape(j.shape[0], fb.shape[1], -1)
     poisoned = torch.isnan(j).any(-1)
@@ -243,7 +263,8 @@ def _crosspol_plain(cr_row, w_half, s0_cr, dsig_cr, wco_half, has_co):
 
 
 def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                             sband, srow0, vmask, has_cr, block, chunk_blocks=16):
+                             sband, srow0, vmask, has_cr, block, n_rows=SLAB_ROWS,
+                             chunk_blocks=16):
     n_blocks = sband.shape[0]
     n_phi = lut_pad.shape[2]
     f = feats.reshape(n_blocks, block, 8)
@@ -257,7 +278,7 @@ def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr
         band = sband[sel].to(torch.int64)
         r0 = srow0[sel].to(torch.int64)
         fb = f[sel]  # (nb, block, 8)
-        flat, hit, poisoned = _slab_argmin_plain(slab_cost, fb, band, r0)
+        flat, hit, poisoned = _slab_argmin_plain(slab_cost, fb, band, r0, n_rows)
         row = r0[:, None] + torch.div(flat, n_phi, rounding_mode="floor")
         col = torch.where(poisoned, 0, flat % n_phi)
         wspd_co = torch.where(hit, w_pad[row], 0.0)
@@ -278,7 +299,8 @@ def _no_hit_flat(n_phi):
     return ((_NAN_IDX // n_phi) & ~1) * n_phi
 
 
-def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk_blocks):
+def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk_blocks,
+                      n_rows=SLAB_ROWS):
     """K3's output (and K5's) from a slab cost (see :func:`_direct_slab_cost`):
     the winner's flat index with K3's sentinels, 0 in all-padding blocks."""
     n_blocks = sband.shape[0]
@@ -291,16 +313,16 @@ def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk
             continue
         r0 = srow0[sel].to(torch.int64)
         flat, hit, poisoned = _slab_argmin_plain(slab_cost, f[sel], sband[sel].to(torch.int64),
-                                                 r0)
+                                                 r0, n_rows)
         idx = torch.where(hit, r0[:, None] * n_phi + flat, _no_hit_flat(n_phi))
         out[sel] = torch.where(poisoned, _NAN_IDX, idx).to(torch.int32)
     return out
 
 
 def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
-                       chunk_blocks=16):
+                       n_rows=SLAB_ROWS, chunk_blocks=16):
     return _slab_index_plain(_direct_slab_cost(lut_pad, u_half, v_half), lut_pad.shape[2],
-                             feats, sband, srow0, vmask, block, chunk_blocks)
+                             feats, sband, srow0, vmask, block, chunk_blocks, n_rows)
 
 
 def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64):
@@ -364,6 +386,8 @@ def _load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.xs_group_argmin.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.xs_group_argmin.restype = i
+            lib.xs_group_argmin_streamed.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.xs_group_argmin_streamed.restype = i
             lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 7 + [p]
             lib.xs_slab_refine_fused.restype = i
             lib.xs_slab_refine.argtypes = [p] * 8 + [i] * 6 + [p]
@@ -421,25 +445,50 @@ def _in_range(t, lo, hi, name, ascending=False):
 
 # ------------------------------------------------------------------ wrappers
 
+def k1_staged_fits(n_rows, n_cols):
+    """Whether K1's staged form can hold an ``n_rows`` x ``n_cols`` grid in
+    a block's shared memory (its three planes, row groups and partials)."""
+    ld = (n_cols + 3) & ~3
+    return (3 * n_rows * ld + 2 * 4 * GROUP_BLOCK + n_rows) * 4 <= _SMEM_OPTIN
+
+
 def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
                  block=GROUP_BLOCK):
-    """K1: first-minimum wspd group per pixel over the coarse grid.
+    """K1: first-minimum wspd group per pixel over a grid of LUT cells, the
+    grid held whole in shared memory (the fused mode's coarse grid).
 
     lut_c (I, R, C), u_half/v_half (R, C) f32 and row_group (R,) i32 come
     from :func:`build_coarse_arrays`; feats (n_blocks*block, 4) f32 rows
-    (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding slots;
-    band_of_block (n_blocks,) band per block. Returns (n_blocks, block)
-    i32; pixels with no finite cost get ``n_groups - 1``. The kernel takes
-    blocks of ``GROUP_BLOCK`` pixels and a non-decreasing ``row_group``
-    (each of its chains meets its groups in ascending order); the plain
-    version takes any.
+    (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding slots; band_of_block
+    (n_blocks,) band per block. Returns (n_blocks, block) i32; pixels with no
+    finite cost get ``n_groups - 1``. The kernel takes blocks of
+    ``GROUP_BLOCK`` pixels, a non-decreasing ``row_group`` (each of its
+    chains meets its groups in ascending order) and a grid that fits a
+    block's shared memory (:func:`k1_staged_fits`); the plain version takes
+    any.
     """
+    return _group_argmin("group_argmin", lut_c, u_half, v_half, row_group, feats,
+                         band_of_block, n_groups, block)
+
+
+def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
+                          block=GROUP_BLOCK):
+    """K1's streamed form: :func:`group_argmin` on a grid of any size, its
+    rows streamed through shared memory 16 at a time (the fused_exact mode's
+    full grid, built by :func:`build_coarse_arrays` at strides 1). Same
+    arguments and result."""
+    return _group_argmin("group_argmin_streamed", lut_c, u_half, v_half, row_group, feats,
+                         band_of_block, n_groups, block)
+
+
+def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
+                  block):
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
         return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                    n_groups, block)
     if feats.device.type != "cuda":
-        raise ValueError(f"group_argmin: unsupported device {feats.device}")
+        raise ValueError(f"{name}: unsupported device {feats.device}")
     n_rows, n_cols = u_half.shape
     band = band_of_block.to(torch.int32)
     _cuda_args(feats.device, {
@@ -450,26 +499,34 @@ def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_group
         "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "band_of_block": (band, torch.int32, None)})
     if block != GROUP_BLOCK:
-        raise ValueError(f"group_argmin: the kernel takes blocks of {GROUP_BLOCK} pixels")
+        raise ValueError(f"{name}: the kernel takes blocks of {GROUP_BLOCK} pixels")
     if feats.data_ptr() % 16:
-        raise ValueError("group_argmin: feats must be 16-byte aligned")
+        raise ValueError(f"{name}: feats must be 16-byte aligned")
+    if name == "group_argmin" and not k1_staged_fits(n_rows, n_cols):
+        raise ValueError(f"group_argmin: a {n_rows} x {n_cols} grid does not fit a block's "
+                         "shared memory; use group_argmin_streamed")
     _in_range(band, 0, lut_c.shape[0], "band_of_block")
     _in_range(row_group, 0, n_groups, "row_group", ascending=True)
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.xs_group_argmin(
+        rc = getattr(lib, f"xs_{name}")(
             lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
             feats.data_ptr(), band.data_ptr(), out.data_ptr(),
             n_blocks, block, n_rows, n_cols, n_groups, stream)
-    _check(lib, rc, "group_argmin")
-    _launches["group_argmin"] += 1
+    _check(lib, rc, name)
+    _launches[name] += 1
     return out
 
 
+def _check_rows(n_rows, wp_rows, name):
+    if not 1 <= n_rows <= wp_rows:
+        raise ValueError(f"{name}: n_rows {n_rows} outside [1, {wp_rows}]")
+
+
 def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                      srow0, vmask, has_cr=True, block=SLAB_BLOCK):
+                      srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS):
     """K2: slab refine + decode + crosspol argmin per (band, group) block.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
@@ -478,16 +535,17 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     :func:`build_crosspol_arrays` (ignored with ``has_cr=False``); feats
     (n_blocks*block, 8) f32 rows (s0_db, ma/2, mz/2, 1/dsig, s0_cr_db,
     dsig_cr, 0, 0), NaN rows for padding; sband, srow0, vmask (n_blocks,):
-    LUT band, first of the ``SLAB_ROWS`` slab rows and a 0 for all-padding
-    blocks (their output
-    is 0). Returns (n_blocks, 4, block) f32 rows (wspd_co, phi, wspd_cr, 0).
+    LUT band, first of the ``n_rows`` slab rows (48 in the fused mode, 32 in
+    fused_exact) and a 0 for all-padding blocks (their output is 0). Returns
+    (n_blocks, 4, block) f32 rows (wspd_co, phi, wspd_cr, 0).
     A pixel whose slab costs hold a NaN gets (0, 0); its crosspol cost
     likewise gives 0.
     """
     n_blocks = sband.shape[0]
     if feats.device.type == "cpu":
         return _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
-                                        cr_whalf, feats, sband, srow0, vmask, has_cr, block)
+                                        cr_whalf, feats, sband, srow0, vmask, has_cr, block,
+                                        n_rows)
     if feats.device.type != "cuda":
         raise ValueError(f"slab_refine_fused: unsupported device {feats.device}")
     n_inc, wp_rows, n_phi = lut_pad.shape
@@ -506,8 +564,9 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
         "vmask": (i32[2], torch.int32, None)})
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine_fused: the kernel takes blocks of {SLAB_BLOCK} pixels")
+    _check_rows(n_rows, wp_rows, "slab_refine_fused")
     _in_range(i32[0], 0, n_inc, "sband")
-    _in_range(i32[1], 0, wp_rows - SLAB_ROWS + 1, "srow0")
+    _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
     out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
@@ -516,19 +575,20 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), w_pad.data_ptr(),
             co_phir.data_ptr(), cr_lut.data_ptr(), cr_whalf.data_ptr(), feats.data_ptr(),
             i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, SLAB_ROWS, n_cr, int(bool(has_cr)), stream)
+            n_blocks, block, wp_rows, n_phi, n_rows, n_cr, int(bool(has_cr)), stream)
     _check(lib, rc, "slab_refine_fused")
     _launches["slab_refine_fused"] += 1
     return out
 
 
-def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK):
+def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK,
+                n_rows=SLAB_ROWS):
     """K3: slab refine per (band, group) block, emitting the flat index.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
     :func:`build_direct_arrays`; feats (n_blocks*block, 4) f32 rows
     (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding; sband, srow0, vmask
-    (n_blocks,) as for :func:`slab_refine_fused`. Returns (n_blocks, block)
+    (n_blocks,) and ``n_rows`` as for :func:`slab_refine_fused`. Returns (n_blocks, block)
     i32: the winner's row-major index ``row * P + col`` into the true
     (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
     ``((2**30 // P) & ~1) * P`` for one with no finite cost (the reference's
@@ -536,7 +596,8 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
     """
     n_blocks = sband.shape[0]
     if feats.device.type == "cpu":
-        return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block)
+        return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
+                                  n_rows)
     if feats.device.type != "cuda":
         raise ValueError(f"slab_refine: unsupported device {feats.device}")
     n_inc, wp_rows, n_phi = lut_pad.shape
@@ -550,8 +611,9 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         "vmask": (i32[2], torch.int32, None)})
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
+    _check_rows(n_rows, wp_rows, "slab_refine")
     _in_range(i32[0], 0, n_inc, "sband")
-    _in_range(i32[1], 0, wp_rows - SLAB_ROWS + 1, "srow0")
+    _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
@@ -559,7 +621,7 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         rc = lib.xs_slab_refine(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), feats.data_ptr(),
             i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, SLAB_ROWS, _no_hit_flat(n_phi), stream)
+            n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi), stream)
     _check(lib, rc, "slab_refine")
     _launches["slab_refine"] += 1
     return out
@@ -654,8 +716,12 @@ def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
     return n_bad, [tuple(pair) for pair in pairs]
 
 
-KERNELS = {"group_argmin": group_argmin, "slab_refine_fused": slab_refine_fused,
-           "slab_refine": slab_refine, "crosspol_argmin": crosspol_argmin}
+# K1's two forms are one function with one plain version
+_group_argmin_streamed_plain = _group_argmin_plain
+
+KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_streamed,
+           "slab_refine_fused": slab_refine_fused, "slab_refine": slab_refine,
+           "crosspol_argmin": crosspol_argmin}
 _launches = dict.fromkeys(KERNELS, 0)
 
 

@@ -38,23 +38,31 @@ __all__ = ["SeamCases", "TIE_ROW0", "seam_cases", "tie_sets"]
 TIE_ROW0 = 16  # first LUT row of the tie blocks' slab
 
 
-def tie_sets(n_phi):
+def tie_sets(n_phi, n_rows=K.SLAB_ROWS):
     """Cells (slab row, column) that hold one value each; a pixel placed on
-    them ties at cost 0 and the lowest flat index must win."""
+    them ties at cost 0 and the lowest flat index must win. The slab holds
+    ``n_rows`` rows, a multiple of 8 from 32 (the rows of its last chunk
+    shift with it: 41, 40, 44, 47 at 48 rows; 25, 24, 28, 31 at 32, where
+    the scalar tail's pair moves up to row 30 to leave the slab's last entry
+    to the last set)."""
+    if n_rows < 32 or n_rows % 8:
+        raise ValueError(f"tie_sets: n_rows {n_rows} is not a multiple of 8 from 32")
     last = n_phi - 1
+    end = n_rows - 1
+    tail = min(31, end - 1)
     return [
         [(2, 10), (3, 10)],  # adjacent warps, one chunk
         [(3, 20), (4, 20)],  # the lower index in warp 3, the higher in warp 0
         [(7, 30), (8, 30)],  # across chunks
         [(9, 11), (13, 11)],  # one warp, one chunk
-        [(17, 12), (41, 12)],  # one warp, two chunks
-        [(40, 5), (21, 5), (22, 5)],  # three warps, two chunks
+        [(17, 12), (end - 6, 12)],  # one warp, two chunks
+        [(end - 7, 5), (21, 5), (22, 5)],  # three warps, two chunks
         [(30, 0), (30, 1)],  # one float4
         [(30, 3), (30, 4)],  # across float4s
-        [(31, last - 1), (31, last)],  # the last float4 and the scalar tail
+        [(tail, last - 1), (tail, last)],  # the last float4 and the scalar tail
         [(5, last), (6, 0)],  # a row's tail and the next row's head
-        [(44, 7), (12, 7)],  # listed out of order
-        [(47, last), (0, 0)],  # the slab's last and first entries
+        [(end - 3, 7), (12, 7)],  # listed out of order
+        [(end, last), (0, 0)],  # the slab's last and first entries
     ]
 
 
@@ -63,6 +71,7 @@ class SeamCases:
     """Raw tables (``lut``, ``u``, ``v``, ``wspd``, ``phir``, ``crlut``,
     ``crw``), the port's operands built from them, the per-block
     ``sband``/``srow0``/``vmask`` and the (n, 8) ``feats``, and
+    ``n_rows``, the slab height to pass the kernels (``n_rows=``);
     ``expected``: slot -> K3's designed output for the slots whose answer
     the design fixes; ``crosspol_slots``, NaN-s0 slots whose crosspol is
     still solved."""
@@ -78,6 +87,7 @@ class SeamCases:
     sband: np.ndarray
     srow0: np.ndarray
     vmask: np.ndarray
+    n_rows: int = K.SLAB_ROWS
     expected: dict = field(default_factory=dict)
     crosspol_slots: list = field(default_factory=list)
 
@@ -100,12 +110,15 @@ class SeamCases:
         return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in ops)
 
 
-def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0):
-    """The adversarial block set at width ``n_phi`` (see the module
-    docstring); 14 blocks of ``K.SLAB_BLOCK`` pixels. The tie cells need
-    ``n_phi >= 32`` and ``n_wspd >= 64``."""
-    if n_phi < 32 or n_wspd < TIE_ROW0 + K.SLAB_ROWS:
-        raise ValueError(f"seam_cases: n_phi {n_phi} < 32 or n_wspd {n_wspd} < 64")
+def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0, n_rows=K.SLAB_ROWS):
+    """The adversarial block set at width ``n_phi`` and slab height
+    ``n_rows`` (see the module docstring); 14 blocks of ``K.SLAB_BLOCK``
+    pixels. The tie cells need ``n_phi >= 32`` and ``n_wspd >= 16 +
+    n_rows``."""
+    sets = tie_sets(n_phi, n_rows)
+    if n_phi < 32 or n_wspd < TIE_ROW0 + n_rows:
+        raise ValueError(f"seam_cases: n_phi {n_phi} < 32 or n_wspd {n_wspd} < "
+                         f"{TIE_ROW0 + n_rows}")
     rng = np.random.default_rng(seed)
     bs = K.SLAB_BLOCK
     n_inc = 3
@@ -114,7 +127,6 @@ def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0):
     lut = rng.uniform(-35, 0, (n_inc, n_wspd, n_phi)).astype(np.float32)
     u = (wspd[:, None] * np.cos(phir)[None, :]).astype(np.float32)
     v = (wspd[:, None] * np.sin(phir)[None, :]).astype(np.float32)
-    sets = tie_sets(n_phi)
     for cells in sets:  # one value per set, in every band
         (r1, c1), rest = cells[0], cells[1:]
         for r, c in rest:
@@ -130,7 +142,7 @@ def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0):
 
     # (band, srow0) per block; see the comments of each block below
     layout = [(0, 0), (0, TIE_ROW0), (1, TIE_ROW0), (2, TIE_ROW0), (2, 48),
-              (0, wp - K.SLAB_ROWS), (0, 0), (1, 0), (2, 48), (0, TIE_ROW0), (1, 0), (0, 0),
+              (0, wp - n_rows), (0, 0), (1, 0), (2, 48), (0, TIE_ROW0), (1, 0), (0, 0),
               (0, 0), (0, TIE_ROW0)]
     nb = len(layout)
     sband = np.array([b for b, _ in layout], np.int32)
@@ -181,7 +193,7 @@ def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0):
     #    entry ties and the first wins
     feats[slot(5, 64):slot(5, 128), 3] = 1e-3
     for p in range(bs):
-        expected[slot(5, p)] = no_hit if p < 64 else (wp - K.SLAB_ROWS) * n_phi
+        expected[slot(5, p)] = no_hit if p < 64 else (wp - n_rows) * n_phi
     # 6-9: padding tails of 88, 64, 127 and 1 slots (whole groups, mid-group)
     for b, live in ((6, 40), (7, 64), (8, 1), (9, 127)):
         pad(b, live)
@@ -221,5 +233,5 @@ def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0):
             on_cell(s, 0, TIE_ROW0 + r, c)
             expected[s] = winner(cells)
     return SeamCases(lut=lut, u=u, v=v, wspd=wspd, phir=phir, crlut=crlut, crw=crw,
-                     feats=feats, sband=sband, srow0=srow0, vmask=vmask, expected=expected,
-                     crosspol_slots=crosspol_slots)
+                     feats=feats, sband=sband, srow0=srow0, vmask=vmask, n_rows=n_rows,
+                     expected=expected, crosspol_slots=crosspol_slots)

@@ -26,16 +26,22 @@ Modes:
   crosspol axis (K4). On a CUDA device the kernels are the hand-written
   ones of :mod:`xsarsea_tpu_torch.ops.inversion_kernels`; on the CPU their
   plain PyTorch versions run.
+* ``"fused_exact"`` — the fused pipeline with its first pass on the full
+  (wspd, phi) grid instead of the coarse one (K1 streams the band's grid
+  through shared memory), and the refine on a 32-row slab around the group
+  it finds (the reference's ``pallas_exact``): the fused mode's ground
+  truth, ~4x slower; ``scripts/sweep_margin.py`` holds the coarse pass's
+  spacing and margin against it.
 * ``"auto"`` — ``"fused"`` on a CUDA device when the tables have a copol
-  LUT, ``"exact"`` otherwise. The fused path can differ from ``"exact"``
-  on near-tie pixels (its cost multiplies by ``1/dsig`` where ``"exact"``
+  LUT, ``"exact"`` otherwise. The fused modes can differ from ``"exact"``
+  on near-tie pixels (their cost multiplies by ``1/dsig`` where ``"exact"``
   divides): callers that need run-to-run identity with ``"exact"`` pass
   ``mode="exact"``.
 
 ``invert_from_model`` takes and returns ``xarray.DataArray``-like objects
 through :func:`xsarsea_tpu_torch.interop.xarray_io`. Scenes larger than a
-piece stream through three overlapped lanes (``_invert_source``). Not ported
-yet: the ``pallas_exact`` mode (full-grid first pass).
+piece stream through three overlapped lanes (``_invert_source``). Several
+devices, and batches of scenes: :mod:`xsarsea_tpu_torch.parallel`.
 """
 
 from __future__ import annotations
@@ -69,11 +75,15 @@ D_AZI = 2.0
 DWSPD_FG = 2.0
 
 # coarse grid of the fused path's first pass, in physical units (~0.8 m/s
-# in wspd, ~4 deg in phi), the values the reference tuned
-# (xsarsea_tpu/windspeed/inversion.py:483-514); the slab around the coarse
-# winner's group is K.SLAB_ROWS rows starting K.SLAB_MARGIN rows below it
+# in wspd, ~4 deg in phi), and the margin in wspd rows of the slab around the
+# coarse winner's group (WGROUP + 2 * margin rows, starting margin rows below
+# it): the values the reference tuned (xsarsea_tpu/windspeed/inversion.py:
+# 483-514), which scripts/sweep_margin.py holds against the fused_exact mode.
+# Module knobs: the closures are cached under their values.
 _COARSE_DW = 0.8
 _COARSE_DPHI = 4.0
+_COARSE_MARGIN = K.SLAB_MARGIN
+_FUSED_MODES = ("fused", "fused_exact")
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -357,14 +367,24 @@ def _postprocess_vectorized(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, ws
             torch.where(guard, nan, dual_re), torch.where(guard, 0.0, dual_im))
 
 
-def _make_fused_invert_fn(tables, device):
+def _make_fused_invert_fn(tables, device, coarse=True):
     """Fused inversion: bucketing, K1, re-bucketing, then K2 and a scatter
     back to pixel order, or (crosspol LUT on its own incidence axis) K3, a
     decode in pixel order and K4 re-bucketed by the crosspol axis; then the
     vectorized postprocess (reference ``_make_pallas_invert_fn``,
-    inversion.py:659-1015)."""
+    inversion.py:659-1015).
+
+    ``coarse``: K1 on the coarse grid (``_COARSE_DW`` x ``_COARSE_DPHI``)
+    with a ``_COARSE_MARGIN`` refine margin in wspd rows (a multiple of 8, as
+    the reference's), or on the full grid with ``K.EXACT_SLAB_MARGIN`` (the
+    fused_exact mode).
+    """
     if not tables.has_co:
         raise ValueError("the fused inversion needs a copol LUT; use mode='exact'")
+    margin = _COARSE_MARGIN if coarse else K.EXACT_SLAB_MARGIN
+    if margin < 0 or margin % 8:
+        raise ValueError(f"the refine margin must be a multiple of 8 rows, got {margin}")
+    slab_rows = K.WGROUP + 2 * margin
     dev = torch.device(device)
     f32 = torch.float32
     co_wspd = np.asarray(tables.co_wspd, np.float64)
@@ -375,8 +395,8 @@ def _make_fused_invert_fn(tables, device):
     u = np.asarray(tables.co_u, np.float32)
     v = np.asarray(tables.co_v, np.float32)
     lut_c, u_c, v_c, row_group, n_wgroups = K.build_coarse_arrays(
-        lut, u, v, stride_w=max(1, round(_COARSE_DW / step_w)),
-        stride_p=max(1, round(_COARSE_DPHI / step_p)))
+        lut, u, v, stride_w=max(1, round(_COARSE_DW / step_w)) if coarse else 1,
+        stride_p=max(1, round(_COARSE_DPHI / step_p)) if coarse else 1)
     lut_pad, u_pad, v_pad = K.build_direct_arrays(lut, u, v)
     n_inc, wp_rows, n_phi = lut_pad.shape
     n_wspd = co_wspd.shape[0]
@@ -385,7 +405,10 @@ def _make_fused_invert_fn(tables, device):
     def to_dev(a):
         return torch.as_tensor(a, device=dev)
 
-    coarse = tuple(to_dev(a) for a in (lut_c, u_c, v_c, row_group))
+    k1_ops = tuple(to_dev(a) for a in (lut_c, u_c, v_c, row_group))
+    # K1 holds a grid that fits a block's shared memory whole, and streams
+    # one that does not (the full grid of the fused_exact mode)
+    k1_name = "group_argmin" if K.k1_staged_fits(*u_c.shape) else "group_argmin_streamed"
     direct = tuple(to_dev(a) for a in (lut_pad, u_pad, v_pad, w_pad))
     co_phir = to_dev(np.asarray(tables.co_phir, np.float32))
     has_cr = tables.has_cr
@@ -430,8 +453,8 @@ def _make_fused_invert_fn(tables, device):
 
         # stage 1: coarse group argmin per incidence-band block (K1)
         feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
-        gstar = K.group_argmin(*coarse, feats1, band_of_block, n_wgroups,
-                               block=block).reshape(-1)
+        gstar = getattr(K, k1_name)(*k1_ops, feats1, band_of_block, n_wgroups,
+                                    block=block).reshape(-1)
 
         # stage 2: re-bucket by (band, group) for the slab refine
         perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
@@ -440,15 +463,15 @@ def _make_fused_invert_fn(tables, device):
         valid2 = perm2 >= 0
         dst = perm2[valid2]  # every pixel id sits in exactly one valid slot
         sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
-        srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - K.SLAB_MARGIN, 0,
-                            wp_rows - K.SLAB_ROWS)
+        srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - margin, 0,
+                            wp_rows - slab_rows)
         vmask = valid2.reshape(-1, K.SLAB_BLOCK).any(dim=1)
         feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], nan)
 
         if fused_tail:
             # slab refine + decode + crosspol (K2), then back to pixel order
             vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
-                                       has_cr=has_cr, block=K.SLAB_BLOCK)
+                                       has_cr=has_cr, block=K.SLAB_BLOCK, n_rows=slab_rows)
             slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
             res = torch.empty((3, n), dtype=f32, device=inc.device)
             res[:, dst] = slots[:3]
@@ -458,7 +481,7 @@ def _make_fused_invert_fn(tables, device):
             # order; the reference clips its sentinels to the last grid cell
             # (inversion.py:940-946)
             flat_r = K.slab_refine(*direct[:3], feats2, sband, srow0, vmask,
-                                   block=K.SLAB_BLOCK)
+                                   block=K.SLAB_BLOCK, n_rows=slab_rows)
             flat = torch.zeros(n, dtype=torch.int64, device=inc.device)
             flat[dst] = flat_r.reshape(-1)[valid2].to(torch.int64)
             flat = flat.clamp(0, n_wspd * n_phi - 1)
@@ -491,20 +514,26 @@ def _make_fused_invert_fn(tables, device):
 def _resolve_mode(mode, tables, device):
     if mode == "auto":
         return "fused" if torch.device(device).type == "cuda" and tables.has_co else "exact"
-    if mode not in ("exact", "fused"):
+    if mode != "exact" and mode not in _FUSED_MODES:
         raise ValueError(f"unknown inversion mode '{mode}'")
     return mode
 
 
 def _get_invert_fn(tables, chunk_size, mode, device):
-    """The inversion closure for (tables, mode, device), cached on the tables."""
-    key = (mode, str(torch.device(device)), chunk_size if mode == "exact" else None)
+    """The inversion closure for (tables, mode, device), cached on the
+    tables. The fused modes' key holds the sweepable knobs, so a changed
+    knob is never served a closure built under the old value (the
+    reference's key, inversion.py:1085-1091)."""
+    if mode == "exact":
+        key = (mode, str(torch.device(device)), chunk_size)
+    else:
+        key = (mode, str(torch.device(device)), _COARSE_DW, _COARSE_DPHI, _COARSE_MARGIN)
     cache = tables._invert_fn_cache
     if key not in cache:
         if mode == "exact":
             cache[key] = _make_exact_fn(tables, chunk_size, device)
         else:
-            cache[key] = _make_fused_invert_fn(tables, device)
+            cache[key] = _make_fused_invert_fn(tables, device, coarse=mode == "fused")
     return cache[key]
 
 
@@ -713,7 +742,7 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
         # auto: linear sigma0 to the device on the f32 fused path (a per-call
         # copy, so the caller's source keeps its own setting)
         source = copy.copy(source)
-        source.device_db = mode == "fused" and dtype == torch.float32
+        source.device_db = mode in _FUSED_MODES and dtype == torch.float32
     fn = _get_invert_fn(tables, chunk_size, mode, device)
     dsig_t = torch.tensor(dsig_co, dtype=dtype, device=device)
     n = source.n
