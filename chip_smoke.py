@@ -98,14 +98,31 @@ it finishes; any failure exits non-zero:
     ``invert_pixels``; and a mesh naming the card twice:
     ``sharded_invert_pixels`` in ``fused`` mode (data 2) and ``exact`` mode
     (model 2) bit-equal to one device on 2**16 px, ``sharded_streaks_histogram``
-    (data 2) on phase 10's tile against the one-device core.
+    (data 2) on phase 10's tile against the one-device core;
+12. the port's remaining entry points: (a) ``xsarsea-tpu-torch invert``
+    (``xsarsea_tpu_torch.cli``) with its defaults (the card, mode auto) on
+    phase 4's scene written as a directory of ``.npy`` files, dual-pol and
+    mono-pol, each launching K1 and K2 and bit-equal to ``invert_from_model``
+    on the same memmaps, then ``list``; (b) ``utils.trace`` around one
+    2**22-px device-resident call, whose trace file must name K1's and K2's
+    kernels; (c) the full-scene demo (``scripts/demo_full_scene.py``) at its
+    default 10**8 px from a temporary directory: build and inversion seconds,
+    Mpx/s from disk, the Python-allocated peak, the pinned pool, the dual-pol
+    RMS against the truth (gates: finite and < 1.0 m/s, temporaries below the
+    outputs' bytes); (d) ``PlotGradients(hist).peak`` on phase 10's class
+    histogram in float64, card against ``device="cpu"``: angles equal outside
+    windows whose two largest weights are within 1e-9 relative (the card's
+    histogram sums atomically), weights to rtol 1e-9; (e) the four stage and
+    scaling scripts at their defaults (``bench_stages``, ``bench_streaks_stages``,
+    ``bench_gather_sizes``, ``bench_scaling``), printing their tables; (f) the
+    seven examples, ``main()`` each on the card, with their own gates.
 
 Phases 4 and 9 run ``invert_from_model`` through the overlapped piece loop
 (preparation, kernels and result copies of neighbouring pieces at once,
 through pinned buffers) and again through the serial loop: the two results
 must be bit-equal, and both times are printed.
 
-``python3 chip_smoke.py --through N`` (N from 3 to 10) stops after phase N,
+``python3 chip_smoke.py --through N`` (N from 3 to 11) stops after phase N,
 for a quicker look at the phases before it while a kernel is being worked
 on; it prints neither of the two result lines below, which only a whole run
 earns.
@@ -1447,7 +1464,211 @@ def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps
     log(card)
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=11, seed=0):
+# ---------------------- phase 12: the CLI, the trace, the full scene, the rest
+
+DEMO_RMS_MAX = 1.0  # m/s, dual-pol speed against the truth (the JAX demo's scene)
+PEAK_TIE_RTOL = 1e-9  # a window whose two largest weights are closer is a tie
+PEAK_RTOL = 1e-9  # peak weights, card against CPU in float64 (atomic sums)
+SCENE_KEYS = (("inc", "inc"), ("sigma0", "s0_co"), ("sigma0_dual", "s0_cr"),
+              ("ancillary_wind", "anc"))
+EXAMPLES = ("create_hh_lut", "detrend_roughness", "gmfs_and_luts", "multichip_batch",
+            "out_of_core_scene", "streaks_direction", "windspeed_retrieval")
+
+
+def fused_launches(launches, what, phase):
+    """Exit unless ``launches`` has K1 and K2 and no kernel of the unfused
+    tail."""
+    if not (launches["group_argmin"] and launches["slab_refine_fused"]) \
+            or launches["slab_refine"] or launches["crosspol_argmin"]:
+        raise SystemExit(f"{phase}: {what} launched {launches}, expected K1 and K2 only")
+
+
+def cli_on_card(torch, K, sc, tmp, phase):
+    """(a): ``xsarsea-tpu-torch invert`` with its defaults (the card, mode
+    auto -> fused) on phase 4's scene as a directory of ``.npy`` files, dual
+    and mono-pol, each bit-equal to ``invert_from_model`` on the same
+    memmaps; then ``list``."""
+    from xsarsea_tpu_torch import cli
+    from xsarsea_tpu_torch.windspeed.inversion import invert_from_model
+
+    dual, mono = tmp / "scene", tmp / "mono"
+    dual.mkdir()
+    mono.mkdir()
+    for key, field in SCENE_KEYS:
+        np.save(dual / f"{key}.npy", sc[field])
+        if key != "sigma0_dual":
+            (mono / f"{key}.npy").symlink_to(dual / f"{key}.npy")
+    mm = {key: np.load(dual / f"{key}.npy", mmap_mode="r") for key, _ in SCENE_KEYS}
+    for d, model, keys in ((dual, "gmf_cmod5n,gmf_s1_v2", ("wind_co", "wind_dual")),
+                           (mono, "gmf_cmod5n", ("wind",))):
+        out = tmp / f"{d.name}_wind.npz"
+        K.reset_launch_counts()
+        _, seconds = host_seconds(torch, lambda: cli.main(["invert", str(d), str(out),
+                                                           "--model", model]))
+        launches = K.launch_counts()
+        fused_launches(launches, f"the CLI's invert --model {model}", phase)
+        got = np.load(out)
+        if "," in model:
+            ref = invert_from_model(mm["inc"], mm["sigma0"], mm["sigma0_dual"],
+                                    ancillary_wind=mm["ancillary_wind"], dsig_cr=0.1,
+                                    model=tuple(model.split(",")), device="cuda")
+        else:
+            ref = (invert_from_model(mm["inc"], mm["sigma0"], ancillary_wind=mm["ancillary_wind"],
+                                     dsig_cr=0.1, model=model, device="cuda"),)
+        for key, want in zip(keys, ref):
+            if not same_bits(got[key], want) or not np.isfinite(got[key]).all():
+                raise SystemExit(f"{phase}: the CLI's {key} ({model}) differs from "
+                                 "invert_from_model on the same memmaps, or is not finite")
+        log(f"{phase} (a) xsarsea-tpu-torch invert {d.name}/ --model {model} (defaults: "
+            f"--device cuda, --mode auto): {sc['inc'].size} px from memmapped .npy files to "
+            f".npz in {seconds:.3f} s, launches {launches}; {', '.join(keys)} bit-equal to "
+            "invert_from_model on the same memmaps")
+    cli.main(["list"])
+
+
+def trace_on_card(torch, tables, dev, tmp, phase):
+    """(b): ``utils.trace`` around one device-resident fused call; its trace
+    file must name K1's and K2's kernels."""
+    from xsarsea_tpu_torch.utils import trace
+    from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
+
+    invert_pixels(tables, *dev, device="cuda", device_output=True)  # warm
+    with trace(tmp / "trace") as tr:
+        invert_pixels(tables, *dev, device="cuda", device_output=True)
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {want: sorted({e["name"] for e in kernels if want in e["name"]})
+             for want in ("group_argmin", "slab_refine_fused")}
+    log(f"{phase} (b) trace of invert_pixels on {dev[0].shape[0]} device-resident px: "
+        f"{Path(tr.path).name}, {Path(tr.path).stat().st_size} bytes, {len(events)} events, "
+        f"{len(kernels)} kernel events; K1/K2 kernels named: {found}")
+    if not all(found.values()):
+        raise SystemExit(f"{phase}: the trace does not name K1's and K2's kernels")
+
+
+def demo_on_card(K, phase):
+    """(c): the full-scene demo at its default 10**8 px, into a temporary
+    directory removed afterwards."""
+    from xsarsea_tpu_torch.scripts import demo_full_scene
+
+    K.reset_launch_counts()
+    res = demo_full_scene.main([], log=lambda line: log(f"{phase} (c) demo: {line}"))
+    launches = K.launch_counts()
+    fused_launches(launches, "the demo", phase)
+    temporaries = res["peak_bytes"] - res["output_bytes"]
+    log(f"{phase} (c) full-scene demo, {res['px']} px: build {res['build_seconds']:.2f} s, "
+        f"inversion from disk {res['seconds']:.2f} s = {res['mpx_s']:.3f} Mpx/s, launches "
+        f"{launches}; Python-allocated peak {res['peak_bytes']} bytes (outputs "
+        f"{res['output_bytes']}, temporaries {temporaries}), pinned pool "
+        f"{res['pinned_bytes']} bytes; dual-pol RMS vs truth {res['rms']:.6f} m/s")
+    if not (np.isfinite(res["rms"]) and res["rms"] < DEMO_RMS_MAX):
+        raise SystemExit(f"{phase}: the demo's RMS {res['rms']} is not below {DEMO_RMS_MAX}")
+    if not temporaries < res["output_bytes"]:
+        raise SystemExit(f"{phase}: the demo's temporaries ({temporaries} bytes) are not "
+                         f"below its outputs ({res['output_bytes']})")
+
+
+def peak_on_card(seed, phase, side=2048):
+    """(d): ``PlotGradients(hist).peak`` on phase 10's class histogram in
+    float64, on the card against ``device="cpu"``."""
+    from xsarsea_tpu_torch import DimArray
+    from xsarsea_tpu_torch import gradients as G
+
+    base = synthetic_tile(side, side, seed + 2).astype(np.float64)
+    da = DimArray(np.stack([base, 0.2 * base]), dims=("pol", "line", "sample"),
+                  coords={"pol": np.array(["VV", "VH"]), "line": np.arange(side) * 10.0,
+                          "sample": np.arange(side) * 10.0})
+    kw = dict(windows_sizes=[1600, 3200], downscales_factors=[1, 2])
+    hist, peak, seconds = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        hist[dev] = G.Gradients(da, device=dev, **kw).histogram
+        peak[dev] = G.PlotGradients(hist[dev]).peak
+        peak[dev]["angle"].values  # the peak reaches the host: the work is done
+        seconds[dev] = time.perf_counter() - t0
+    if peak["cuda"]["angle"].data.device.type != "cuda":
+        raise SystemExit(f"{phase}: the peak on the card was not computed there")
+    top2 = np.sort(hist["cpu"]["weight"].values, axis=-1)[..., -2:]
+    tie = ~(top2[..., 1] - top2[..., 0] > PEAK_TIE_RTOL * np.abs(top2[..., 1]))
+    got, ref = peak["cuda"]["angle"].values, peak["cpu"]["angle"].values
+    bad = int(((got != ref) & ~tie).sum())
+    w_got, w_ref = peak["cuda"]["weight"].values, peak["cpu"]["weight"].values
+    w_dev = float(np.max(np.abs(w_got - w_ref) / np.abs(w_ref)))
+    log(f"{phase} (d) PlotGradients(Gradients(2 x {side}^2, windows [1600, 3200] m, factors "
+        f"[1, 2]).histogram).peak, float64: {got.size} windows {peak['cuda']['angle'].dims}, "
+        f"card {seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} s (histogram included); "
+        f"{int(tie.sum())} ties (two largest weights within {PEAK_TIE_RTOL:.0e} relative), "
+        f"{int((got != ref).sum())} angles differing, {bad} of them outside a tie; peak weight "
+        f"largest relative deviation {w_dev:.3e} (tolerance {PEAK_RTOL:.0e})")
+    if bad or not w_dev <= PEAK_RTOL:
+        raise SystemExit(f"{phase}: the peak on the card differs from the CPU's")
+
+
+def scripts_on_card(phase):
+    """(e): the four stage and scaling scripts at their defaults."""
+    from xsarsea_tpu_torch.scripts import (bench_gather_sizes, bench_scaling, bench_stages,
+                                           bench_streaks_stages)
+
+    for mod in (bench_stages, bench_streaks_stages, bench_gather_sizes, bench_scaling):
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        mod.main(log=lambda line, name=name: log(f"{phase} (e) {name}: {line}"))
+        log(f"{phase} (e) {name} in {time.perf_counter() - t0:.1f} s")
+
+
+def examples_on_card(K, phase):
+    """(f): the seven examples, ``main()`` each on the card at its default
+    size; each raises where its JAX counterpart asserts."""
+    import importlib
+
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"xsarsea_tpu_torch.examples.{name}")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main()
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        log(f"{phase} (f) example {name}: {res} in {time.perf_counter() - t0:.2f} s, "
+            f"launches {launches}")
+        if name in ("windspeed_retrieval", "multichip_batch"):
+            fused_launches(K.launch_counts(), f"example {name}", phase)
+        if name == "windspeed_retrieval" and not res["rms"] < 1.0:
+            raise SystemExit(f"{phase}: windspeed_retrieval's RMS {res['rms']} is not below 1")
+        if name == "streaks_direction" and not abs(res["err"]) < 7.5:
+            raise SystemExit(f"{phase}: streaks_direction is {res['err']} deg off")
+
+
+def phase12(torch, K, sc, tables, card, seed, n_trace=1 << 22):
+    """The port's remaining entry points on the card: the CLI, the profiler
+    trace, the 10**8-px demo, PlotGradients' peak, the four scripts and the
+    seven examples."""
+    clock = [time.perf_counter()]
+
+    def step(label):
+        now = time.perf_counter()
+        log(f"phase 12 ({label}) in {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory(prefix="phase12_") as tmp:
+        cli_on_card(torch, K, sc, Path(tmp), "phase 12")
+        step("a")
+        dev = device_inputs(torch, sc, sc["s0_cr_db"])(0, n_trace)
+        trace_on_card(torch, tables, dev, Path(tmp), "phase 12")
+        del dev
+        step("b")
+    demo_on_card(K, "phase 12")
+    step("c")
+    peak_on_card(seed, "phase 12")
+    step("d")
+    scripts_on_card("phase 12")
+    step("e")
+    examples_on_card(K, "phase 12")
+    step("f")
+    log("phase 12 card (nvidia-smi name, power.limit):")
+    log(card)
+
+
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
     import torch
 
     if not torch.cuda.is_available():
@@ -1470,7 +1691,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=11, seed=0):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
-        if phase.split()[1] == str(through) and through < 11:
+        if phase.split()[1] == str(through) and through < 12:
             log(f"stopped after phase {through}, as asked: no result line")
             raise SystemExit(0)
 
@@ -1585,6 +1806,10 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=11, seed=0):
     phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_rms, reps)
     done("phase 11")
 
+    # phase 12: the CLI, the trace, the 10**8-px demo, the peak, scripts, examples
+    phase12(torch, K, sc, tables, card, seed)
+    done("phase 12")
+
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1594,8 +1819,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=11, seed=0):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--through", type=int, default=11, choices=range(3, 12), metavar="N",
-                        help="stop after phase N (3-10); the default runs all eleven phases")
+    parser.add_argument("--through", type=int, default=12, choices=range(3, 13), metavar="N",
+                        help="stop after phase N (3-11); the default runs all twelve phases")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the scenes (default 0, which phase 4's RMS gate expects)")
     cli = parser.parse_args()

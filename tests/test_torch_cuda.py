@@ -2,8 +2,9 @@
 the exact path; the scene-preparation functions and the wind-streak path on
 the card against their CPU runs; the overlapped piece loop on its streams
 against the serial one; the fused_exact mode (K1's streamed form, 32-row
-slabs) and a mesh naming the card twice. Needs a CUDA device and nvcc;
-skipped elsewhere.
+slabs) and a mesh naming the card twice; the CLI's ``invert`` on the card,
+the profiler context's trace and ``PlotGradients``' peak against the CPU.
+Needs a CUDA device and nvcc; skipped elsewhere.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
@@ -866,3 +867,93 @@ def test_sharded_invert_pixels_on_one_card_twice(cuda):
     ref_w, ref_r = (t.cpu().numpy() for t in G.streaks_histogram_core(img, cl, cs, 16, bins))
     np.testing.assert_allclose(w.reshape(ref_w.shape), ref_w, rtol=1e-9, atol=1e-12)
     np.testing.assert_array_equal(r.reshape(ref_r.shape), ref_r)
+
+
+def test_cli_invert_on_card_launches_k1_k2_and_equals_invert_from_model(cuda, tmp_path, capsys):
+    """``xsarsea-tpu-torch invert`` with its defaults (the card, mode auto ->
+    fused) on a 2**18-px scene directory: K1 and K2 launched, winds bit-equal
+    to ``invert_from_model`` on the same memmaps."""
+    from xsarsea_tpu_torch import cli
+
+    ny = nx = 512
+    inc, s0_co_db, s0_cr_db, _, anc = _gmf_pixels(ny * nx, 9)
+    d = tmp_path / "scene"
+    d.mkdir()
+    for key, arr in (("inc", inc), ("sigma0", 10 ** (s0_co_db / 10)),
+                     ("sigma0_dual", 10 ** (s0_cr_db / 10)), ("ancillary_wind", anc)):
+        np.save(d / f"{key}.npy", arr.reshape(ny, nx))
+    K.reset_launch_counts()
+    cli.main(["invert", str(d), str(tmp_path / "wind.npz"), "--model", "gmf_cmod5n,gmf_s1_v2"])
+    launches = K.launch_counts()
+    assert launches["group_argmin"] and launches["slab_refine_fused"], launches
+    assert "inverted 262144 px" in capsys.readouterr().out
+    got = np.load(tmp_path / "wind.npz")
+    mm = {f[:-4]: np.load(d / f, mmap_mode="r") for f in ("inc.npy", "sigma0.npy",
+                                                          "sigma0_dual.npy",
+                                                          "ancillary_wind.npy")}
+    ref = invert_from_model(mm["inc"], mm["sigma0"], mm["sigma0_dual"],
+                            ancillary_wind=mm["ancillary_wind"], dsig_cr=0.1,
+                            model=("gmf_cmod5n", "gmf_s1_v2"))
+    assert _same_bits(got["wind_co"], ref[0]) and _same_bits(got["wind_dual"], ref[1])
+
+
+def test_trace_names_k1_and_k2(cuda, tmp_path):
+    """``utils.trace`` around a device-resident fused call writes a trace
+    whose device events name K1's and K2's kernels."""
+    import json
+
+    from xsarsea_tpu_torch.utils import trace
+
+    tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=torch.float32, inc_step=0.5,
+                            wspd_step=0.2, phi_step=2.5)
+    dev = [torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+           for a in _gmf_pixels(1 << 16, 10)[:4]]
+    anc = torch.as_tensor(_gmf_pixels(1 << 16, 10)[4].astype(np.complex64), device=cuda)
+    invert_pixels(tables, *dev, anc, device=cuda, device_output=True)  # build and warm up
+    with trace(tmp_path / "trace") as tr:
+        invert_pixels(tables, *dev, anc, device=cuda, device_output=True)
+    with open(tr.path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("group_argmin" in n for n in names), sorted(names)[:50]
+    assert any("slab_refine_fused" in n for n in names)
+
+
+def test_plot_gradients_peak_on_card_against_cpu(cuda):
+    """``PlotGradients(hist).peak`` on the card against the CPU in float64:
+    angles equal where a window's two largest weights differ by more than
+    1e-9 relative (the card's histogram sums in any order), weights to rtol
+    1e-9."""
+    from xsarsea_tpu_torch import gradients as G
+
+    rng = np.random.default_rng(31)
+    yy, xx = np.mgrid[0:512, 0:512]
+    img = (1.0 + 0.4 * np.sin(0.3 * (xx + 0.7 * yy)) + 0.1 * rng.normal(size=(512, 512))) ** 2
+    da = DimArray(np.stack([img, 0.3 * img]), dims=("pol", "line", "sample"),
+                  coords={"pol": np.array(["VV", "VH"]), "line": np.arange(512) * 10.0,
+                          "sample": np.arange(512) * 10.0})
+    kw = dict(windows_sizes=[800, 1600], downscales_factors=[1, 2])
+    peaks = {d: G.PlotGradients(G.Gradients(da, device=d, **kw).histogram).peak
+             for d in ("cuda", "cpu")}
+    assert peaks["cuda"]["angle"].data.device.type == "cuda"
+    ref_w = G.Gradients(da, device="cpu", **kw).histogram["weight"].values
+    top2 = np.sort(ref_w, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 1e-9 * np.abs(top2[..., 1])
+    got_a, ref_a = peaks["cuda"]["angle"].values, peaks["cpu"]["angle"].values
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got_a[clear], ref_a[clear])
+    np.testing.assert_allclose(peaks["cuda"]["weight"].values, peaks["cpu"]["weight"].values,
+                               rtol=1e-9)
+
+
+def test_gmf_grid_of_card_tensors(cuda):
+    """All-1-D CUDA inputs give the outer-product grid on the card with host
+    coordinates, equal to the CPU's in float64 (the GMF's arithmetic in a
+    fixed order: rtol 1e-12)."""
+    grids = [np.linspace(20.0, 45.0, 6), np.linspace(1.0, 30.0, 7), np.linspace(0.0, 180.0, 5)]
+    got = get_model("gmf_cmod5n")(*(torch.as_tensor(g, device=cuda) for g in grids))
+    ref = get_model("gmf_cmod5n")(*grids)
+    assert got.data.device.type == "cuda" and got.dims == ("incidence", "wspd", "phi")
+    for d, g in zip(got.dims, grids):
+        assert isinstance(got.coords[d], np.ndarray)
+        np.testing.assert_array_equal(got.coords[d], g)
+    np.testing.assert_allclose(got.values, ref.values, rtol=1e-12)

@@ -59,7 +59,7 @@ def assert_same_histogram(got, ref):
 
 def test_gradients2d_end_to_end():
     assert xsarsea_tpu_torch.gradients is TG and "gradients" in xsarsea_tpu_torch.__all__
-    assert "PlotGradients" not in TG.__all__  # the plots are not ported yet
+    assert set(JG.__all__) <= set(TG.__all__)  # PlotGradients included
     img = streak_image(400, 400, angle_deg=25.0)
     g = Gradients2D(img, window_size=100, window_step=1, device="cpu")
     hist = g.histogram

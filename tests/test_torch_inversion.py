@@ -413,7 +413,8 @@ def test_port_imports_no_jax():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'dask', 'h5py', 'ml_dtypes'))\n"
+            "('jax', 'jaxlib', 'xsarsea_tpu', 'pandas', 'yaml', 'xarray', 'dask', 'h5py', "
+            "'ml_dtypes', 'matplotlib', 'holoviews', 'fsspec'))\n"
             "print(bad); print(*names); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
@@ -426,4 +427,11 @@ def test_port_imports_no_jax():
             "xsarsea_tpu_torch.detrend", "xsarsea_tpu_torch.windspeed.dsig",
             "xsarsea_tpu_torch.models.gmf", "xsarsea_tpu_torch.utils",
             "xsarsea_tpu_torch.utils.staging", "xsarsea_tpu_torch.ops.conv2d",
-            "xsarsea_tpu_torch.gradients"} <= walked
+            "xsarsea_tpu_torch.gradients", "xsarsea_tpu_torch.cli",
+            "xsarsea_tpu_torch.scripts.demo_full_scene", "xsarsea_tpu_torch.scripts.bench_stages",
+            "xsarsea_tpu_torch.scripts.bench_streaks_stages",
+            "xsarsea_tpu_torch.scripts.bench_gather_sizes",
+            "xsarsea_tpu_torch.scripts.bench_scaling"} | {
+        f"xsarsea_tpu_torch.examples.{name}" for name in (
+            "create_hh_lut", "detrend_roughness", "gmfs_and_luts", "multichip_batch",
+            "out_of_core_scene", "streaks_direction", "windspeed_retrieval")} <= walked

@@ -54,6 +54,7 @@ logger = logging.getLogger("xsarsea_tpu_torch.gradients")
 __all__ = [
     "Gradients",
     "Gradients2D",
+    "PlotGradients",
     "StackedGradients",
     "local_gradients",
     "streaks_histogram_core",
@@ -1163,3 +1164,239 @@ def filtering_parameters(image_ori, device="cuda"):
 
     wrap = r2.copy
     return wrap(data=f1), wrap(data=f2), wrap(data=f3), wrap(data=f4), wrap(data=F)
+
+
+class PlotGradients:
+    """Histogram-peak visualization (counterpart of the JAX package's
+    ``PlotGradients``, gradients.py:1287-1543).
+
+    :attr:`peak` is the reference's peak dataset (max-weight angle per
+    window, gradients.py:419-428), computed on the histogram's device: a
+    :class:`~xsarsea_tpu_torch.dimarray.DimDataset` of tensors with
+    ``angle``, ``weight`` and ``used_ratio``. Two drawing backends, each
+    imported by the method that needs it:
+
+    * matplotlib: static quiver (:meth:`vectorfield`) and circular histogram
+      (:meth:`histogram_plot`, through :func:`circ_hist`, which needs pandas);
+    * holoviews: the reference's interactive linked view
+      (gradients.py:441-585): :meth:`hv_vectorfield` with a mouse-tap stream,
+      :meth:`mouse_histogram` showing the tapped window's circular
+      histogram, per-dim styles (pol -> line_dash, downscale_factor ->
+      line_width, window_size -> line_color).
+    """
+
+    #: one style per non-spatial dim (reference gradients.py:396-401)
+    dim_styles = {
+        "pol": {"line_dash": ["solid", "dotted"]},
+        "downscale_factor": {"line_width": [1, 2, 3, 4]},
+        "window_size": {"line_color": ["blue", "red", "yellow", "green"]},
+    }
+
+    def __init__(self, gradients_hist):
+        self.gradients_hist = gradients_hist
+        w = gradients_hist["weight"]
+        data = w.data if isinstance(w.data, torch.Tensor) else torch.as_tensor(np.asarray(w.data))
+        ax = w.dims.index("angles")
+        # argmax takes the first maximum, as jnp.argmax; NaN weighs 0
+        iangle = torch.argmax(torch.nan_to_num(torch.abs(data)), dim=ax)
+        angles = torch.as_tensor(np.asarray(w.coords["angles"]), device=data.device)
+        peak_weight = torch.take_along_dim(data, iangle.unsqueeze(ax), dim=ax).squeeze(ax)
+        dims = tuple(d for d in w.dims if d != "angles")
+        coords = {k: v for k, v in w.coords.items() if k != "angles"}
+        self.peak = DimDataset({
+            "angle": DimArray(angles[iangle], dims=dims, coords=coords),
+            "weight": DimArray(peak_weight, dims=dims, coords=coords),
+            "used_ratio": gradients_hist["used_ratio"],
+        })
+        self._non_spatial_dims = [d for d in dims if d not in ("line", "sample")]
+        self._vectorfield = None
+        self._mouse_stream = None
+
+    def vectorfield(self, ax=None, scale=None):
+        """Quiver plot of histogram peak directions (180 deg ambiguous)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        angle = self.peak["angle"].values
+        weight = self.peak["weight"].values
+        # reduce any leading non-spatial dims by taking the first index
+        while angle.ndim > 2:
+            angle, weight = angle[0], weight[0]
+        line = np.asarray(self.peak["angle"].coords["line"])
+        sample = np.asarray(self.peak["angle"].coords["sample"])
+        ss, ll = np.meshgrid(sample, line)
+        ax.quiver(ss, ll, weight * np.cos(angle), weight * np.sin(angle), pivot="mid",
+                  headwidth=0, headlength=0, headaxislength=0, scale=scale)
+        ax.set_xlabel("sample")
+        ax.set_ylabel("line")
+        return ax
+
+    def histogram_plot(self, line=None, sample=None, ax=None):
+        """Circular histogram at the window nearest (line, sample)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        w = self.gradients_hist.sel(line=line, sample=sample, method="nearest")["weight"]
+        data = w.values
+        while data.ndim > 1:
+            data = data[0]
+        pts = circ_hist(DimArray(data, dims=("angles",), coords={"angles": w.coords["angles"]}))
+        ax.plot(pts["sample_g"], pts["line_g"])
+        ax.set_aspect("equal")
+        return ax
+
+    # -------------------------------------------- holoviews backend (optional)
+
+    @staticmethod
+    def _hv():
+        try:
+            import holoviews as hv
+        except ImportError as e:
+            raise ImportError(
+                "interactive plots need holoviews: pip install 'xsarsea_tpu[viz]' or holoviews "
+                "directly; the matplotlib methods vectorfield()/histogram_plot() work without "
+                "it") from e
+        return hv
+
+    def _combos(self):
+        """All index-selections over non-spatial dims (reference
+        combine_all); dicts of dim -> index into the dim's coord."""
+        from itertools import product
+
+        sizes = [self.peak["angle"].sizes[d] for d in self._non_spatial_dims]
+        return [dict(zip(self._non_spatial_dims, comb))
+                for comb in product(*(range(s) for s in sizes))]
+
+    def _style_for(self, sel):
+        """Per-dim style of one combo (reference _get_style + style vars);
+        ``sel`` maps dim -> coord index."""
+        style = {}
+        for dim, idx in sel.items():
+            for style_name, style_values in self.dim_styles.get(dim, {}).items():
+                if idx < len(style_values):
+                    style[style_name] = style_values[idx]
+        return style
+
+    def _peak_2d(self, sel):
+        """(line, sample, angle, weight) host arrays of one combo's peak."""
+        pk = self.peak.isel(sel) if sel else self.peak
+        line = np.asarray(pk["angle"].coords["line"])
+        sample = np.asarray(pk["angle"].coords["sample"])
+        ang = pk["angle"].values.reshape(len(line), len(sample))
+        wgt = pk["weight"].values.reshape(len(line), len(sample))
+        return line, sample, ang, wgt
+
+    def hv_vectorfield(self, tap=True):
+        """Interactive hv.VectorField of the histogram peaks.
+
+        Reference parity: gradients.py:441-486. One VectorField per
+        (pol, downscale_factor, window_size) combo with per-dim styles, a
+        manual legend, and (``tap=True``) a mouse-tap stream drawing the
+        tapped window's outline; link :meth:`mouse_histogram` to the same
+        tap for the linked circular-histogram view.
+        """
+        hv = self._hv()
+        if self._vectorfield is None:
+            vf_list = []
+            for sel in self._combos():
+                line, sample, ang, wgt = self._peak_2d(sel)
+                ss, ll = np.meshgrid(sample, line)
+                table = {"sample": ss.ravel(), "line": ll.ravel(), "angle": ang.ravel(),
+                         "weight": wgt.ravel()}
+                vf_list.append(hv.VectorField(table, kdims=["sample", "line"],
+                                              vdims=["angle", "weight"]).opts(
+                    pivot="mid", arrow_heads=False, magnitude="weight", aspect="equal",
+                    **self._style_for(sel)))
+            # manual legend: one dummy curve per style value
+            legends = []
+            dummy_line = [(0, 0), (0.01, 0)]
+            for dim, table in self.dim_styles.items():
+                if dim not in self._non_spatial_dims:
+                    continue
+                vals = np.atleast_1d(np.asarray(self.peak["angle"].coords.get(
+                    dim, np.arange(self.peak["angle"].sizes[dim]))))
+                for style_name, style_values in table.items():
+                    for i, v in enumerate(vals[: len(style_values)]):
+                        # 'black', not matplotlib's 'k': these opts feed bokeh
+                        style = {"line_dash": "solid", "line_width": 1, "line_color": "black",
+                                 style_name: style_values[i]}
+                        legends.append(hv.Curve(dummy_line, label=f"{dim} {v}")
+                                       .redim.label(x="sample", y="line").opts(**style))
+            self._vectorfield = hv.Overlay(vf_list + legends).opts(
+                active_tools=["wheel_zoom", "pan"])
+
+        if tap:
+            line = np.asarray(self.peak["angle"].coords["line"])
+            sample = np.asarray(self.peak["angle"].coords["sample"])
+            self._mouse_stream = hv.streams.Tap(x=sample[len(sample) // 2],
+                                                y=line[len(line) // 2],
+                                                source=self._vectorfield)
+            return self._vectorfield * hv.DynamicMap(self._hv_get_windows,
+                                                     streams=[self._mouse_stream])
+        return self._vectorfield
+
+    def mouse_histogram(self, source=None):
+        """DynamicMap circular histogram linked to the vectorfield tap
+        (reference gradients.py:488-494)."""
+        hv = self._hv()
+        if self._mouse_stream is None:
+            raise RuntimeError("call hv_vectorfield(tap=True) first")
+        if source is None:
+            source = self
+        return hv.DynamicMap(source.hv_histogram_plot, streams=[self._mouse_stream]).opts(
+            active_tools=["wheel_zoom"])
+
+    def _nearest_center(self, sample, line):
+        lines = np.asarray(self.peak["angle"].coords["line"])
+        samples = np.asarray(self.peak["angle"].coords["sample"])
+        return (samples[np.abs(samples - sample).argmin()],
+                lines[np.abs(lines - line).argmin()])
+
+    def _hv_get_windows(self, sample=None, line=None, x=None, y=None):
+        """Window outline(s) at the tapped center (gradients.py:510-555)."""
+        hv = self._hv()
+        if x is not None:
+            sample = x
+        if y is not None:
+            line = y
+        sample, line = self._nearest_center(sample, line)
+        ws_coord = self.peak["angle"].coords.get("window_size")
+        if ws_coord is not None:
+            ws_list = list(np.atleast_1d(np.asarray(ws_coord)))
+        else:
+            lines = np.asarray(self.peak["angle"].coords["line"])
+            samples = np.asarray(self.peak["angle"].coords["sample"])
+            ws_list = [float(np.mean([np.diff(lines[:2]), np.diff(samples[:2])]))]
+        paths = []
+        for i, ws in enumerate(ws_list):
+            amin, amax = line - ws / 2, line + ws / 2
+            xmin, xmax = sample - ws / 2, sample + ws / 2
+            style = self._style_for({"window_size": i}) if ws_coord is not None else {}
+            paths.append(hv.Path([[(xmin, amin), (xmin, amax), (xmax, amax), (xmax, amin),
+                                   (xmin, amin)]]).opts(**style))
+        return hv.Overlay(paths)
+
+    def hv_histogram_plot(self, sample=None, line=None, x=None, y=None):
+        """Circular histogram(s) at (sample, line), one hv.Path per combo
+        with per-dim styles (reference gradients.py:557-585)."""
+        hv = self._hv()
+        if x is not None:
+            sample = x
+        if y is not None:
+            line = y
+        sample, line = self._nearest_center(sample, line)
+        hist_at = self.gradients_hist.sel(line=line, sample=sample, method="nearest")
+        hp_list = []
+        for sel in self._combos():
+            w = hist_at.isel({d: i for d, i in sel.items()
+                              if d in hist_at["weight"].dims})["weight"]
+            pts = circ_hist(DimArray(w.values.reshape(-1), dims=("angles",),
+                                     coords={"angles": w.coords["angles"]}))
+            hp_list.append(hv.Path({"sample_g": pts["sample_g"].to_numpy(),
+                                    "line_g": pts["line_g"].to_numpy()},
+                                   kdims=["sample_g", "line_g"]).opts(
+                axiswise=False, framewise=False, aspect="equal", **self._style_for(sel)))
+        return hv.Overlay(hp_list).opts(xlabel=f"sample {sample:g}", ylabel=f"line {line:g}",
+                                        width=200, height=200)

@@ -8,7 +8,10 @@ global attributes; ``models.py:232-262``):
 * :func:`read_lut` reads it back, and reads netCDF4-over-HDF5 files through
   ``h5py``, imported only for such a file;
 * :func:`write_packed_lut` / :func:`read_packed_lut` keep the XSTL1 packed
-  cache format (one f32 C-order block behind a JSON header), in Python.
+  cache format (one f32 C-order block behind a JSON header), through the
+  native codec ``xsarsea_tpu_torch._lutio`` when it is built
+  (``python setup.py build_ext --inplace``) and in Python otherwise, with
+  the same files and arrays either way.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 
 from xsarsea_tpu_torch.dimarray import DimArray
 
-__all__ = ["write_lut", "read_lut", "read_lut_attrs", "write_packed_lut", "read_packed_lut"]
+__all__ = ["write_lut", "read_lut", "read_lut_attrs", "write_packed_lut", "read_packed_lut",
+           "native_codec"]
 
 _LUT_VAR = "sigma0_model"
 _XSTL1 = b"XSTL1\n"
@@ -109,21 +113,40 @@ def read_lut(path) -> DimArray:
     return DimArray(data, dims=dims, coords=coords, attrs=attrs, name=_LUT_VAR)
 
 
+def native_codec():
+    """The native codec ``xsarsea_tpu_torch._lutio`` when it is built, else
+    None (the callers then take their Python paths)."""
+    try:
+        from xsarsea_tpu_torch import _lutio
+    except ImportError:
+        return None
+    return _lutio
+
+
+def _packed_meta(lut: DimArray, attrs):
+    return json.dumps({
+        "dims": list(lut.dims),
+        "coords": {d: np.asarray(lut.coords[d], np.float64).tolist() for d in lut.dims},
+        "attrs": {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                  for k, v in (attrs or {}).items()},
+    })
+
+
 def write_packed_lut(path, lut: DimArray, attrs=None):
     """Write a LUT in the packed XSTL1 cache format: magic, u32 JSON length,
     JSON (dims, float64 coords, attrs), u32 ndim, u64 shape, f32 C-order
     payload."""
-    attrs = lut.attrs if attrs is None else attrs
-    meta = json.dumps({
-        "dims": list(lut.dims),
-        "coords": {d: np.asarray(lut.coords[d], np.float64).tolist() for d in lut.dims},
-        "attrs": {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in attrs.items()},
-    }).encode()
+    meta = _packed_meta(lut, lut.attrs if attrs is None else attrs)
     data = np.ascontiguousarray(lut.values, dtype=np.float32)
+    _lutio = native_codec()
+    if _lutio is not None:
+        _lutio.write_packed(str(path), data, meta)
+        return
+    mb = meta.encode()
     with open(path, "wb") as f:
         f.write(_XSTL1)
-        f.write(np.uint32(len(meta)).tobytes())
-        f.write(meta)
+        f.write(np.uint32(len(mb)).tobytes())
+        f.write(mb)
         f.write(np.uint32(data.ndim).tobytes())
         f.write(np.asarray(data.shape, np.uint64).tobytes())
         f.write(data.tobytes())
@@ -131,14 +154,19 @@ def write_packed_lut(path, lut: DimArray, attrs=None):
 
 def read_packed_lut(path) -> DimArray:
     """Read a packed XSTL1 LUT cache written by :func:`write_packed_lut`."""
-    with open(path, "rb") as f:
-        if f.read(len(_XSTL1)) != _XSTL1:
-            raise ValueError(f"{path}: not an XSTL1 file")
-        mlen = int(np.frombuffer(f.read(4), np.uint32)[0])
-        meta = json.loads(f.read(mlen))
-        ndim = int(np.frombuffer(f.read(4), np.uint32)[0])
-        shape = np.frombuffer(f.read(8 * ndim), np.uint64).astype(int)
-        data = np.fromfile(f, np.float32).reshape(shape)
+    _lutio = native_codec()
+    if _lutio is not None:
+        data, meta = _lutio.read_packed(str(path))
+        meta = json.loads(meta)
+    else:
+        with open(path, "rb") as f:
+            if f.read(len(_XSTL1)) != _XSTL1:
+                raise ValueError(f"{path}: not an XSTL1 file")
+            mlen = int(np.frombuffer(f.read(4), np.uint32)[0])
+            meta = json.loads(f.read(mlen))
+            ndim = int(np.frombuffer(f.read(4), np.uint32)[0])
+            shape = np.frombuffer(f.read(8 * ndim), np.uint64).astype(int)
+            data = np.fromfile(f, np.float32).reshape(shape)
     return DimArray(data, dims=tuple(meta["dims"]),
                     coords={d: np.asarray(c) for d, c in meta["coords"].items()},
                     attrs=meta.get("attrs", {}), name=_LUT_VAR)

@@ -4,7 +4,9 @@
 Reads the little-endian float32 table ``gmf_cmod7_vv.dat_little_endian``:
 one Fortran unformatted record (an int32 length marker before and after)
 holding 250 wspd x 73 phi x 51 incidence values in Fortran order (reference
-``cmod7.py:19-75``). Source: https://scatterometer.knmi.nl/cmod7
+``cmod7.py:19-75``), decoded by the native codec ``xsarsea_tpu_torch._lutio``
+when it is built and by numpy otherwise (the same array). Source:
+https://scatterometer.knmi.nl/cmod7
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import os
 import numpy as np
 
 from xsarsea_tpu_torch.dimarray import DimArray
+from xsarsea_tpu_torch.io.lut_io import native_codec
 from xsarsea_tpu_torch.models.base import LutModel
 
 __all__ = ["Cmod7Model", "register_cmod7"]
@@ -39,10 +42,15 @@ class Cmod7Model(LutModel):
     def _raw_lut(self, **kwargs):
         if not os.path.isdir(self.path):
             raise FileNotFoundError(self.path)
-        m, n, p = 250, 73, 51  # wspd, phi, incidence
-        raw = np.fromfile(os.path.join(self.path, "gmf_cmod7_vv.dat_little_endian"), dtype="<f4")
-        raw = raw[1:-1]  # strip the Fortran record's length markers
-        sigma0 = np.ascontiguousarray(raw.reshape((m, n, p), order="F").transpose(2, 0, 1))
+        table_path = os.path.join(self.path, "gmf_cmod7_vv.dat_little_endian")
+        _lutio = native_codec()
+        if _lutio is not None:  # the record stripped and permuted in one pass
+            sigma0 = _lutio.decode_cmod7(table_path)  # (incidence, wspd, phi)
+        else:
+            m, n, p = 250, 73, 51  # wspd, phi, incidence
+            raw = np.fromfile(table_path, dtype="<f4")
+            raw = raw[1:-1]  # strip the Fortran record's length markers
+            sigma0 = np.ascontiguousarray(raw.reshape((m, n, p), order="F").transpose(2, 0, 1))
         return DimArray(
             sigma0,
             dims=("incidence", "wspd", "phi"),

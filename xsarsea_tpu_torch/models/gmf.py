@@ -30,6 +30,13 @@ def _raw(v):
     return v.data if isinstance(v, DimArray) else v
 
 
+def _coord(v):
+    """A coordinate on the host: a tensor's values (from any device), or the
+    array-like as numpy."""
+    v = _raw(v)
+    return to_host(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 def _common_kind(values):
     """(dtype, device) for a call: the first floating tensor input's, else
     float64 on the CPU."""
@@ -250,10 +257,10 @@ class GmfModel(Model):
         if all_1d:
             data = self._eval_grid(_prep(inc, dtype, device), _prep(wspd, dtype, device), phi_t)
             dims = ["incidence", "wspd"]
-            coords = {"incidence": np.asarray(_raw(inc)), "wspd": np.asarray(_raw(wspd))}
+            coords = {"incidence": _coord(inc), "wspd": _coord(wspd)}
             if self._needs_phi:
                 dims.append("phi")
-                coords["phi"] = np.asarray(_raw(phi))
+                coords["phi"] = _coord(phi)
             return DimArray(data, dims=dims, coords=coords, attrs={"units": self.units},
                             name="sigma0_gmf")
 

@@ -1,6 +1,9 @@
-"""Experiment drivers of the port, one per script of the JAX package's
-``scripts/`` whose kernels it ports (run each with ``python -m
+"""Experiment drivers and stage benchmarks of the port, one per script of
+the JAX package's ``scripts/`` (run each with ``python -m
 xsarsea_tpu_torch.scripts.<name>``), and what they share."""
+
+import statistics
+import time
 
 import torch
 
@@ -27,3 +30,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, device, reps=3):
+    """(last output, median ms of ``reps`` runs of ``fn()`` after a warm-up):
+    each run between two CUDA events on a card, on the host clock on the CPU."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)

@@ -1,10 +1,14 @@
 """Small shared helpers (counterpart of ``xsarsea_tpu.utils``).
 
-Ported: the dB conversions, the ``timing`` decorator with its host and
-device memory readings, and the device rule of the entry points
-(:func:`resolve_device`, :func:`compute_device`) and the host staging of
-copies to and from a card (:mod:`xsarsea_tpu_torch.utils.staging`). The config
-loader, the test-data fetcher and the profiler context are not ported yet.
+The dB conversions; the two-layer YAML config (:func:`load_config`: the
+packaged ``config.yml`` overridden by ``~/.xsarsea_tpu_torch/config.yml``);
+the IFREMER test-data fetcher (:func:`get_test_file`); the ``timing``
+decorator with its host and device memory readings; the profiler context
+(:class:`trace`, ``torch.profiler`` with the card's kernels); the device rule
+of the entry points (:func:`resolve_device`, :func:`compute_device`) and the
+host staging of copies to and from a card
+(:mod:`xsarsea_tpu_torch.utils.staging`). Not ported: the JAX package's
+``enable_compilation_cache``, which configures XLA.
 """
 
 from __future__ import annotations
@@ -12,7 +16,10 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import socket
 import time
+import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -23,7 +30,11 @@ logger = logging.getLogger("xsarsea_tpu_torch")
 logger.addHandler(logging.NullHandler())
 
 __all__ = ["to_dB", "from_dB", "timing", "logger", "device_memory_stats", "resolve_device",
-           "compute_device", "as_tensor", "to_device", "to_host"]
+           "compute_device", "as_tensor", "to_device", "to_host", "load_config", "get_test_file",
+           "trace"]
+
+_DEFAULT_CONFIG = {"data_dir": "/tmp"}
+_DEFAULT_TEST_DATA_URL = "https://cyclobs.ifremer.fr/static/sarwing_datarmor/xsardata"
 
 
 def to_dB(x, eps=1e-15):
@@ -36,6 +47,103 @@ def to_dB(x, eps=1e-15):
 def from_dB(x):
     """dB -> linear (``**`` dispatches on the input's array type)."""
     return 10.0 ** (x / 10.0)
+
+
+def load_config():
+    """Load config: ``~/.xsarsea_tpu_torch/config.yml`` overriding the
+    packaged defaults (reference ``xsarsea.utils._load_config``,
+    utils.py:27-43). Keys: ``data_dir``, ``test_data_url``. Needs pyyaml,
+    which nothing on the inversion's path imports."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("load_config reads YAML and needs pyyaml: pip install pyyaml") from e
+
+    config = dict(_DEFAULT_CONFIG)
+    pkg_config = os.path.join(os.path.dirname(os.path.dirname(__file__)), "config.yml")
+    for path in (pkg_config, os.path.expanduser("~/.xsarsea_tpu_torch/config.yml")):
+        if os.path.exists(path):
+            with open(path) as f:
+                config.update(yaml.safe_load(f) or {})
+    return config
+
+
+def _fetch_fsspec(fsspec, url, local, res_path, iszip):
+    """Download through ``fsspec.open("filecache::<url>")``: the archive stays
+    in ``<data_dir>/fsspec_cache``, so a re-extraction never downloads again
+    (reference utils.py:83-95)."""
+    with fsspec.open(f"filecache::{url}",
+                     filecache={"cache_storage": os.path.join(res_path, "fsspec_cache")}) as f:
+        if iszip:
+            with zipfile.ZipFile(f, "r") as zf:
+                zf.extractall(res_path)
+            return
+        # to a temporary name, renamed on success: an interrupted download
+        # must not leave a truncated file that the exists() check then serves
+        part = local + ".part"
+        try:
+            with open(part, "wb") as out:
+                while chunk := f.read(1 << 22):
+                    out.write(chunk)
+            os.replace(part, local)
+        finally:
+            if os.path.exists(part):
+                os.unlink(part)
+
+
+def _fetch_urllib(url, local, res_path, iszip):
+    """Download with ``urllib`` (any URL it opens, ``file://`` included)."""
+    import urllib.request
+
+    tmp = local + (".zip" if iszip else ".part")
+    try:
+        urllib.request.urlretrieve(url, tmp)
+        if iszip:
+            with zipfile.ZipFile(tmp, "r") as zf:
+                zf.extractall(res_path)
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, local)
+    finally:
+        if not iszip and os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def get_test_file(fname, iszip=True):
+    """Path of test file ``fname`` under ``config['data_dir']``, fetched from
+    the IFREMER xsardata server (or ``config['test_data_url']``) and unzipped
+    when it is not there yet.
+
+    API-compatible with ``xsarsea.utils.get_test_file`` (reference
+    utils.py:46-97): a file already present is returned as is; otherwise the
+    download goes through ``fsspec``'s ``filecache::`` when fsspec is
+    importable (any protocol it knows: https, s3, gs, file), else through
+    ``urllib``. Raises ``RuntimeError`` when the file is absent and cannot be
+    fetched.
+    """
+    config = load_config()
+    res_path = config["data_dir"]
+    local = os.path.join(res_path, fname)
+    if os.path.exists(local):
+        return local
+
+    url = f"{config.get('test_data_url', _DEFAULT_TEST_DATA_URL)}/{fname}" + (
+        ".zip" if iszip else "")
+    try:
+        import fsspec
+    except ImportError:
+        fsspec = None
+    warnings.warn(f"Downloading {url}")
+    try:
+        if fsspec is not None:
+            _fetch_fsspec(fsspec, url, local, res_path, iszip)
+        else:
+            _fetch_urllib(url, local, res_path, iszip)
+    except Exception as e:  # noqa: BLE001 - any transport's failure means the same to the caller
+        raise RuntimeError(
+            f"test file '{fname}' not found locally at {local} and download failed ({e}). "
+            "Place the file manually or configure data_dir.") from e
+    return local
 
 
 def resolve_device(device):
@@ -136,3 +244,44 @@ def timing(logger=logger.debug):
         return wrapper
 
     return decorator
+
+
+class trace:
+    """Context manager around ``torch.profiler.profile``: CPU activity, and
+    CUDA activity when a card is present. On exit the trace is written into
+    ``logdir`` as ``<host>_<pid>.<ns>.pt.trace.json`` (Chrome trace format,
+    read by TensorBoard's profiler plugin and by Perfetto); ``path`` names
+    it and ``profile`` is the finished profiler (``key_averages()``).
+
+    >>> with trace("traces") as tr:
+    ...     invert_pixels(tables, ...)
+
+    Counterpart of the JAX package's ``trace`` (``jax.profiler``), with one
+    difference: a profiler that cannot start raises instead of logging and
+    carrying on, so a trace asked for is a trace written.
+    """
+
+    def __init__(self, logdir):
+        self.logdir = str(logdir)
+        self.path = None
+        self.profile = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.logdir, exist_ok=True)
+        self.profile = profile(activities=activities)
+        self.profile.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.profile.__exit__(*exc)
+        name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
+        self.path = os.path.join(self.logdir, name)
+        self.profile.export_chrome_trace(self.path)
+        return False
