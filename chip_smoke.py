@@ -87,12 +87,21 @@ it finishes; any failure exits non-zero:
     must launch the streamed K1 and K2, and on one 2**22-pixel piece of
     phase 7's own-axes tables, which must launch the streamed K1, K3 and K4;
     each form against its plain version on a 64 Kpx subsample, on the seam
-    cases (``coarse_seams`` at 181 columns, ``slab_seams`` at 32 rows) and
-    on one piece's arguments, with its times and bound; ``fused_exact``
-    against ``exact`` on 2**16 px, and ``fused`` against ``fused_exact`` on
-    2**20 px, which must not differ. Then the margin sweep
+    cases (``coarse_seams``' K1 cases as they are, 2-3 rows a group, and
+    lifted to the full grid, and its prune seams, at 181 columns, the
+    streamed K1 with pruning and without; ``slab_seams`` at 32 rows) and on
+    one piece's arguments, with its times and bound; the streamed K1 with
+    pruning against itself without, bit for bit and timed in turns, on that
+    piece, on 2**20 of the margin sweep's adversarial pixels, on those
+    pixels with 0.3 dB of sigma0 noise and a 20 deg ancillary direction
+    error, and on them with sigma0 moved off the GMF, with the chunks each
+    block staged and the cells it swept; ``fused_exact`` against ``exact``
+    on 2**16 px, and ``fused`` against ``fused_exact`` on 2**20 px, which
+    must not differ. Then the margin sweep
     (``xsarsea_tpu_torch/scripts/sweep_margin.py``) at its default
-    configuration and two others on 2**22 adversarial pixels;
+    configuration, which must flip nothing, and three others on 2**22
+    adversarial pixels, one of them the (0.2 m/s, 2 deg) grid that takes
+    the streamed K1;
     ``parallel.invert_scenes`` on four scenes of different shapes (~2**24 px)
     with phase 7's tables, no mesh, from host arrays, each scene bit-equal to
     ``invert_pixels``; and a mesh naming the card twice:
@@ -136,7 +145,11 @@ counted from the kernel's code per entry for the path's real pixels, over
 67 TFLOP/s FP32, or 989 TFLOP/s for K6's bf16 products; NVIDIA's H100 SXM
 data sheet at 700 W). No single PyTorch call computes any of these
 functions (each is an argmin over a cost), so ``library_ms`` is null. The
-last line is ``{"ok": true, "device": {...}}``.
+streamed K1's ``bound_ms`` is that of the cells it swept (its own count);
+its entry adds the full grid's bound, its time without pruning, the
+fractions of chunks and cells swept, and its times on the adversarial,
+noisy and off-GMF pixels. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1246,7 +1259,9 @@ def phase10(torch, card, seed, tile=4096, class_side=2048, scene=(8192, 16384), 
 
 EXACT_ROWS = 32  # the fused_exact mode's slab (K.EXACT_SLAB_ROWS)
 EXACT_ENTRIES = ("group_argmin_streamed", "slab_refine_fused:32_rows", "slab_refine:32_rows")
-SWEEP_SMOKE = ((0.8, 4.0, 16), (0.8, 4.0, 8), (1.6, 4.0, 16))  # the default row and two others
+# the default row, two others, and one whose coarse grid is too large for the
+# staged K1 (250 x 91 cells, 8 rows a group: the streamed form)
+SWEEP_SMOKE = ((0.8, 4.0, 16), (0.8, 4.0, 8), (1.6, 4.0, 16), (0.2, 2.0, 8))
 BATCH_SHAPES = ((2048, 2560), (1600, 2304), (2560, 1800), (1900, 1700))  # 16,767,280 px
 
 
@@ -1271,6 +1286,129 @@ def time_and_hold(torch, K, name, args, kwargs, entry, phase):
         f"one piece (feats {tuple(feats_of(name, args).shape)}); kernel {entry['ms']:.3f} ms, "
         f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
         f"({entry['bound_by']}){sweep_note(torch, K, name, args)}")
+
+
+def swept_by_block(torch, K, args, kwargs, prune):
+    """The streamed K1 with its count per block: (result, (n_blocks, 3)
+    numpy array of the chunks and grid rows each block staged and the
+    (pixel, row) pairs it swept)."""
+    swept = torch.zeros((args[5].shape[0], 3), dtype=torch.int32, device="cuda")
+    out = K.group_argmin_streamed(*args, **{**kwargs, "swept": swept, "_prune": prune})
+    return out, swept.cpu().numpy()
+
+
+def swept_bound(torch, args, swept, out):
+    """(ms, bound_by) for the cells the kernel swept: its (pixel, row) pairs
+    x the grid's columns x the operations of an entry, over the bytes it
+    must move (every input read once, the output written once)."""
+    cells = float(swept[:, 2].astype(np.int64).sum()) * args[1].shape[1]
+    return bound(cells * OPS_DIRECT, nbytes(torch, *args, out))
+
+
+def prune_ab(torch, K, args, kwargs, label, reps=5):
+    """The streamed K1 with pruning and without on the same arguments,
+    timed in turns (off, on, on, off; ``reps`` calls each, CUDA events) and
+    held bit for bit against each other. Returns (ms on, ms off, the count
+    per block with pruning, without)."""
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    times = {False: [], True: []}
+    for prune in (False, True, True, False):
+        times[prune].append(cuda_ms(lambda: K.group_argmin_streamed(
+            *args, **{**kwargs, "_prune": prune}), reps))
+    got, swept = swept_by_block(torch, K, args, kwargs, True)
+    ref, swept_all = swept_by_block(torch, K, args, kwargs, False)
+    if not torch.equal(got, ref):
+        raise SystemExit(f"phase 11: group_argmin_streamed with _prune=True differs from "
+                         f"_prune=False on {int((got != ref).sum())} pixels of {label}")
+    ms_on, ms_off = (statistics.mean(times[p]) for p in (True, False))
+    running = swept_all[:, 0] > 0
+    chunks = swept[running, 0]
+    n_chunks = int(swept_all[running, 0].max())
+    log(f"phase 11 group_argmin_streamed on {label} ({live_pixels(torch, args[4])} live px, "
+        f"{int(running.sum())} blocks): pruned {ms_on:.3f} ms "
+        f"{[round(x, 3) for x in times[True]]}, unpruned {ms_off:.3f} ms "
+        f"{[round(x, 3) for x in times[False]]} (off, on, on, off; "
+        f"{reps} calls each), pruned/unpruned {ms_on / ms_off:.4f}; bit-equal; chunks (groups) "
+        f"staged per block mean {chunks.mean():.3f} of {n_chunks} "
+        f"({chunks.mean() / n_chunks:.4f}), quartiles "
+        f"{np.percentile(chunks, [25, 50, 75]).tolist()}, max {int(chunks.max())}; rows staged "
+        f"{swept[:, 1].sum() / swept_all[:, 1].sum():.4f}, (pixel, row) pairs swept "
+        f"{swept[:, 2].sum() / swept_all[:, 2].sum():.4f} of the unpruned kernel's")
+    return ms_on, ms_off, swept, swept_all
+
+
+def off_manifold(torch, pixels, seed):
+    """The adversarial pixels with their copol sigma0 moved off the GMF by
+    U(-6, 6) dB: far from every LUT value, so best costs stay large and
+    little is pruned."""
+    rng = np.random.default_rng(seed + 12)
+    shift = torch.as_tensor(rng.uniform(-6.0, 6.0, pixels[1].shape[0]).astype(np.float32),
+                            device=pixels[1].device)
+    return [pixels[0], pixels[1] + shift, *pixels[2:]]
+
+
+def noisy(torch, pixels, seed, s0_db=0.3, dir_deg=20.0):
+    """The adversarial pixels with the errors of a real scene, between the
+    forward-modelled pixels and those off the GMF: copol sigma0 plus N(0,
+    ``s0_db``) dB and the ancillary wind turned by N(0, ``dir_deg``) deg."""
+    rng = np.random.default_rng(seed + 13)
+    n = pixels[1].shape[0]
+    dev = pixels[1].device
+    noise = torch.as_tensor(rng.normal(0.0, s0_db, n).astype(np.float32), device=dev)
+    turn = torch.as_tensor(np.deg2rad(rng.normal(0.0, dir_deg, n)), device=dev)
+    anc = torch.complex(pixels[4].double(), pixels[5].double()) * torch.polar(
+        torch.ones_like(turn), turn)
+    return [pixels[0], pixels[1] + noise, pixels[2], pixels[3],
+            anc.real.to(torch.float32).contiguous(), anc.imag.to(torch.float32).contiguous()]
+
+
+def prune_on_card(torch, K, bench_call, tables, report, seed):
+    """The streamed K1's pruning on the card: with and without, in turns, on
+    the bench piece's arguments, on 2**20 of the margin sweep's adversarial
+    pixels, on those pixels with a real scene's noise and on them off the
+    GMF; the bound of the cells it swept (the entry's ``bound_ms``) beside
+    the full grid's."""
+    from xsarsea_tpu_torch.scripts import sweep_margin
+    from xsarsea_tpu_torch.windspeed import inversion as inv
+
+    entry = report["group_argmin_streamed"]
+    args, kwargs = bench_call
+    ms_on, ms_off, swept, swept_all = prune_ab(torch, K, args, kwargs,
+                                               "the bench scene's 2**22-px piece")
+    out = K.group_argmin_streamed(*args, **kwargs)
+    entry["ms_unpruned"] = ms_off
+    entry["bound_full_grid_ms"] = entry["bound_ms"]
+    entry["bound_ms"], entry["bound_by"] = swept_bound(torch, args, swept, out)
+    entry["share"] = entry["bound_ms"] / entry["ms"]
+    entry["share_unpruned"] = entry["bound_full_grid_ms"] / ms_off
+    entry["chunks_swept_fraction"] = float(swept[:, 0].sum() / swept_all[:, 0].sum())
+    entry["cells_swept_fraction"] = float(swept[:, 2].sum() / swept_all[:, 2].sum())
+    log(f"phase 11 group_argmin_streamed bounds: cells swept {entry['bound_ms']:.3f} ms "
+        f"({entry['cells_swept_fraction']:.4f} of the grid's cells; share "
+        f"{entry['share']:.4f} at {entry['ms']:.3f} ms), full grid "
+        f"{entry['bound_full_grid_ms']:.3f} ms (share {entry['share_unpruned']:.4f} of the "
+        f"unpruned kernel at {ms_off:.3f} ms)")
+    fn = inv._make_fused_invert_fn(tables, "cuda", coarse=False)
+    dsig = torch.tensor(0.1, dtype=torch.float32, device="cuda")
+    pixels = sweep_margin.make_pixels(1 << 20, torch.device("cuda"))
+    for label, px, key in (
+            ("2**20 adversarial px", pixels, "adversarial"),
+            ("those px with 0.3 dB sigma0 noise and a 20 deg ancillary direction error",
+             noisy(torch, pixels, seed), "noisy"),
+            ("those px off the GMF", off_manifold(torch, pixels, seed), "off_manifold")):
+        with captured_calls(K) as calls:
+            fn(*px, dsig)
+        on, off, sw, sw_all = prune_ab(torch, K, *calls["group_argmin_streamed"], label)
+        entry[f"ms_{key}"], entry[f"ms_{key}_unpruned"] = on, off
+        entry[f"chunks_swept_fraction_{key}"] = float(sw[:, 0].sum() / sw_all[:, 0].sum())
+        seconds = []
+        for _ in range(3):
+            seconds.append(host_seconds(torch, lambda: fn(*px, dsig))[1])
+        rate = px[0].shape[0] / statistics.median(seconds) / 1e6
+        entry[f"fused_exact_mpx_s_{key}"] = rate
+        log(f"phase 11 the fused_exact closure on {label}: {rate:.3f} Mpx/s (median of 3 after "
+            f"the calls above: {[round(t, 4) for t in seconds]} s)")
 
 
 def exact_path_launches(torch, K, tables, dev, expect, phase):
@@ -1324,8 +1462,9 @@ def batch_scenes(torch, get_model, lut_cr, seed):
 
 def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps):
     """fused_exact on the bench scene and on the own-axes tables, its kernel
-    forms against their plain versions; the margin sweep's default row and
-    two others; ``invert_scenes`` on one card; a mesh naming the card twice."""
+    forms against their plain versions, the streamed K1's pruning on and off;
+    the margin sweep's default row and three others; ``invert_scenes`` on one
+    card; a mesh naming the card twice."""
     from xsarsea_tpu_torch import gradients as G
     from xsarsea_tpu_torch import parallel as par
     from xsarsea_tpu_torch.models import get_model
@@ -1366,20 +1505,30 @@ def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps
     hold_on_subsample(torch, K, tables, dev_inputs, n_sub, report, "phase 11", "fused_exact")
     hold_on_subsample(torch, K, own_tables, own_inputs, n_sub, report, "phase 11",
                       "fused_exact")
-    cases = coarse_seams.coarse_seam_cases(tables.co_lut.shape[2])
-    err, size = hold_against_plain(torch, K, "group_argmin_streamed", cases.args("cuda"),
-                                   {"block": K.GROUP_BLOCK}, "phase 11")
-    got = K.group_argmin_streamed(*cases.args("cuda")).reshape(-1).cpu().numpy()
-    wrong = sum(int(got[s] != e) for s, e in cases.expected.items())
-    if wrong:
-        raise SystemExit(f"phase 11: group_argmin_streamed misses {wrong} of the seam cases' "
-                         "designed answers")
-    log(f"phase 11 group_argmin_streamed: bit-equal to its plain version on K1's seam cases "
-        f"({size} outputs, {tables.co_lut.shape[2]} columns, {cases.n_groups} groups), and at "
-        f"their {len(cases.expected)} designed answers")
+    n_cols = tables.co_lut.shape[2]
+    for what, cases in (("K1's seam cases (2-3 rows a group)",
+                         coarse_seams.coarse_seam_cases(n_cols)),
+                        ("K1's seam cases lifted to the full grid",
+                         coarse_seams.full_grid_seam_cases(n_cols)),
+                        ("the prune seams", coarse_seams.prune_seam_cases(n_cols))):
+        for prune in (True, False):
+            kwargs = {"block": K.GROUP_BLOCK, "radii": cases.radii("cuda"), "_prune": prune}
+            err, size = hold_against_plain(torch, K, "group_argmin_streamed", cases.args("cuda"),
+                                           kwargs, "phase 11")
+            entry = report["group_argmin_streamed"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            got = K.group_argmin_streamed(*cases.args("cuda"), **kwargs).reshape(-1).cpu().numpy()
+            wrong = sum(int(got[s] != e) for s, e in cases.expected.items())
+            if wrong:
+                raise SystemExit(f"phase 11: group_argmin_streamed misses {wrong} of the designed "
+                                 f"answers of {what}")
+        log(f"phase 11 group_argmin_streamed: bit-equal to its plain version on {what} "
+            f"({size} outputs, {cases.u_half.shape} grid, {cases.n_groups} groups), pruning on and "
+            f"off, and at their {len(cases.expected)} designed answers")
     hold_on_seams(torch, K, tables, report, "phase 11", n_rows=EXACT_ROWS)
     time_and_hold(torch, K, "group_argmin_streamed", *calls["group_argmin_streamed"],
                   report["group_argmin_streamed"], "phase 11")
+    prune_on_card(torch, K, calls["group_argmin_streamed"], tables, report, seed)
     time_and_hold(torch, K, "slab_refine_fused", *calls["slab_refine_fused"],
                   report["slab_refine_fused:32_rows"], "phase 11")
     time_and_hold(torch, K, "slab_refine", *own_calls["slab_refine"],
@@ -1400,11 +1549,13 @@ def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps
     done_a = time.perf_counter()
     log(f"phase 11 (a) in {done_a - t0:.1f} s")
 
-    # (b) the margin sweep's default row and two others
+    # (b) the margin sweep's default row and three others
     res = sweep_margin.main(n=1 << 22, configs=SWEEP_SMOKE, reps=2,
                             log=lambda line: log(f"phase 11 sweep_margin: {line}"))
     if res["rows"][0]["config"] != sweep_margin.DEFAULT:
         raise SystemExit("phase 11: the sweep's first row is not the default configuration")
+    if res["rows"][0]["flips_co"] or res["rows"][0]["flips_dual"]:
+        raise SystemExit(f"phase 11: the sweep's default row flips {res['rows'][0]}")
     done_b = time.perf_counter()
     log(f"phase 11 (b) in {done_b - done_a:.1f} s")
 

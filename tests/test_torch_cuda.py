@@ -20,7 +20,8 @@ from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.ops.coarse_seams import (coarse_seam_cases, crosspol_seam_cases,
-                                                fused_crosspol_seam_cases, quotient_edge_set,
+                                                full_grid_seam_cases, fused_crosspol_seam_cases,
+                                                prune_seam_cases, quotient_edge_set,
                                                 quotient_random_set)
 from xsarsea_tpu_torch.ops.slab_seams import seam_cases
 from xsarsea_tpu_torch.windspeed import get_dsig, get_dsig_wspd, nesz_flattening
@@ -738,33 +739,100 @@ def _full_grid_operands(rng, n_inc=3, n_rows=499, n_cols=181, n_blocks=12):
             int(row_group[-1]) + 1), expected
 
 
+def _streamed_both_ways(args, radii, n_blocks):
+    """K1's streamed form with pruning and without, and each one's chunks
+    and rows staged per block."""
+    swept = [torch.zeros((n_blocks, 3), dtype=torch.int32, device=args[0].device)
+             for _ in range(2)]
+    got = [K.group_argmin_streamed(*args, radii=radii, swept=s, _prune=p)
+           for s, p in zip(swept, (True, False))]
+    return got, swept
+
+
 @pytest.mark.parametrize("n_cols", [19, 46, 181])
 def test_k1_streamed_bit_equal_to_plain_version(cuda, n_cols):
-    """K1's streamed form against its plain version, and the staged form
-    against the same answers where the grid fits it: on the coarse seam
-    cases at the width given, and on a full-size 499 x 181 grid with ties
-    across the stream's chunks and chains, NaN entries and padding."""
-    cases = coarse_seam_cases(n_cols)
+    """K1's streamed form, with pruning and without, against its plain
+    version and the designed answers: on the coarse seam cases at the width
+    given (2-3 rows a group, groups across its chunks), and the staged form
+    there too; on those cases lifted to a full grid (a group a chunk); and
+    on a full-size 499 x 181 grid with ties across the stream's chunks and
+    chains, NaN entries and padding."""
     K.reset_launch_counts()
-    args = cases.args(cuda)
-    got = K.group_argmin_streamed(*args)
-    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ref) and torch.equal(got, K.group_argmin(*args))
-    assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
+    for cases, staged in ((coarse_seam_cases(n_cols), True), (full_grid_seam_cases(n_cols), False)):
+        args = cases.args(cuda)
+        (got, got_all), swept = _streamed_both_ways(args, cases.radii(cuda),
+                                                    cases.band_of_block.shape[0])
+        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(got_all, ref)
+        if staged:
+            assert torch.equal(K.group_argmin(*args), ref)
+        assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
+        assert (swept[0][:, 0] <= swept[1][:, 0]).all()
     if n_cols == 181:
         ops, expected = _full_grid_operands(np.random.default_rng(31))
         assert not K.k1_staged_fits(*ops[1].shape)
         args = (*(torch.as_tensor(a, device=cuda) for a in ops[:6]), ops[6])
-        got = K.group_argmin_streamed(*args)
+        radii = torch.as_tensor(K.build_chunk_radii(ops[1], ops[2]), device=cuda)
+        (got, got_all), _ = _streamed_both_ways(args, radii, ops[5].shape[0])
         ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref)
+        assert torch.equal(got, ref) and torch.equal(got_all, ref)
         assert not _wrong(got.reshape(-1).cpu().numpy(), expected)
         with pytest.raises(ValueError, match="does not fit"):
             K.group_argmin(*args)
     counts = K.launch_counts()
-    assert counts["group_argmin"] == 1 and counts["group_argmin_streamed"] == 1 + (n_cols == 181)
+    assert counts["group_argmin"] == 1 and counts["group_argmin_streamed"] == 4 + 2 * (n_cols == 181)
+
+
+@pytest.mark.parametrize("case", ["prune-37", "prune-181", "seams-46"])
+def test_k1_streamed_prune_schedule_on_card(cuda, case):
+    """The pruned streamed K1 on the prune seams (ties between a home group
+    and a later or earlier one, a best equal to a bound, an all-NaN group,
+    sorted and unsorted random blocks, extreme priors and dsig) and on K1's
+    coarse seams (groups not one a chunk): bit-equal to its plain version
+    and to itself unpruned, at the designed answers, and staging per block
+    exactly the chunks and rows of the plain model of its schedule."""
+    kind, n_cols = case.split("-")
+    cases = (prune_seam_cases if kind == "prune" else coarse_seam_cases)(int(n_cols))
+    args = cases.args(cuda)
+    (got, got_all), swept = _streamed_both_ways(args, cases.radii(cuda),
+                                                cases.band_of_block.shape[0])
+    cpu_args = cases.args("cpu")
+    ref = K._group_argmin_plain(*cpu_args, block=K.GROUP_BLOCK)
+    model, model_swept = K._group_argmin_pruned_model(*cpu_args, cases.radii("cpu"))
+    _, model_all = K._group_argmin_pruned_model(*cpu_args, cases.radii("cpu"), prune=False)
+    assert torch.equal(got.cpu(), ref) and torch.equal(got_all.cpu(), ref)
+    assert torch.equal(model, ref)
+    assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
+    assert torch.equal(swept[0].cpu(), model_swept) and torch.equal(swept[1].cpu(), model_all)
+    if kind == "prune":
+        assert int(model_swept[:, 0].sum()) < int(model_all[:, 0].sum())
+
+
+def test_k1_lower_bounds_on_card_equal_their_emulation(cuda):
+    """The streamed K1's bound from the kernel's device function against its
+    float64 emulation, bit for bit (NaN for NaN), on priors at every annulus
+    edge of the high-resolution grid and one float either side, at 0, 1e-30,
+    1e30, denormal, NaN and infinite."""
+    tables = prepare_tables("gmf_cmod5n", dtype=torch.float32)
+    _, u_c, v_c, _, _ = K.build_coarse_arrays(np.asarray(tables.co_lut), np.asarray(tables.co_u),
+                                              np.asarray(tables.co_v), 1, 1)
+    radii = K.build_chunk_radii(u_c, v_c)
+    edges = radii.reshape(-1)
+    rho = np.concatenate([edges, np.nextafter(edges, np.float32(0)),
+                          np.nextafter(edges, np.float32(np.inf)),
+                          np.float32([0, 1e-30, 1e30, 1e-40, 3e-45, np.inf, np.nan])])
+    ang = np.random.default_rng(2).uniform(0, np.pi, rho.size)
+    feats = np.stack([np.zeros_like(rho), rho * np.cos(ang), rho * np.sin(ang),
+                      np.ones_like(rho)], 1).astype(np.float32)
+    feats = np.concatenate([feats, np.stack([np.zeros_like(rho), rho, np.zeros_like(rho),
+                                             np.ones_like(rho)], 1).astype(np.float32)])
+    got = K.chunk_lower_bounds(torch.as_tensor(feats, device=cuda),
+                               torch.as_tensor(radii, device=cuda)).cpu()
+    ref = K.chunk_lower_bounds(torch.as_tensor(feats), torch.as_tensor(radii))
+    same = (got.view(torch.int32) == ref.view(torch.int32)) | (got.isnan() & ref.isnan())
+    assert bool(same.all()), int((~same).sum())
 
 
 @pytest.mark.parametrize("n_phi", [37, 72, 181])

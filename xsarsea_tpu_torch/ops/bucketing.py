@@ -18,7 +18,9 @@ import torch
 __all__ = [
     "DEFAULT_BLOCK",
     "band_boundaries_f32",
+    "band_of_value",
     "bucket_by_band",
+    "bucket_by_band_sorted",
     "bucket_by_value",
     "f32_sort_key",
     "near_uniform_fit",
@@ -192,6 +194,24 @@ def bucket_by_band(band, n_bands, block=DEFAULT_BLOCK, values=None):
     # sentinel slot (= n without sentinels)
     lb_ext = torch.searchsorted(ks, torch.arange(n_bands + 1, device=band.device))
     return _assemble_buckets(lb_ext, order, n, n_bands, block)
+
+
+def bucket_by_band_sorted(band, within, n_bands, block=DEFAULT_BLOCK):
+    """:func:`bucket_by_band` with each band's pixels in ascending order of
+    ``within`` (float32; NaN last, equal values in pixel order): one stable
+    sort of the 64-bit key (band, :func:`f32_sort_key` of ``within``)."""
+    n = band.shape[0]
+    key = band.to(torch.int64) * 2 ** 32 + f32_sort_key(within.to(torch.float32))
+    ks, order = torch.sort(key, stable=True)
+    starts = torch.arange(n_bands + 1, device=band.device) * 2 ** 32
+    return _assemble_buckets(torch.searchsorted(ks, starts), order, n, n_bands, block)
+
+
+def band_of_value(values_f32, boundary_keys):
+    """Per pixel, the band :func:`bucket_by_value` puts it in: the count of
+    boundary keys at or below its value's key (NaN: the last band)."""
+    return torch.searchsorted(boundary_keys.to(values_f32.device), f32_sort_key(values_f32),
+                              right=True)
 
 
 def bucket_by_value(values_f32, boundary_keys, n_bands, block=DEFAULT_BLOCK):

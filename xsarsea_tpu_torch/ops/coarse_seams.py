@@ -55,6 +55,7 @@ from xsarsea_tpu_torch.ops.slab_seams import seam_cases
 
 __all__ = ["CoarseSeamCases", "CrosspolSeamCases", "K1_CHAINS", "K1_SET_PIXELS",
            "coarse_row_group", "coarse_seam_cases", "coarse_tie_sets", "crosspol_seam_cases",
+           "full_grid_seam_cases", "prune_seam_cases",
            "crosspol_tie_sets", "fused_crosspol_seam_cases", "quotient_edge_set",
            "quotient_random_set"]
 
@@ -105,6 +106,7 @@ class CoarseSeamCases:
     band_of_block: np.ndarray
     n_groups: int = N_GROUPS
     expected: dict = field(default_factory=dict)
+    exact_lb: tuple = None  # prune seams: (slot, group, cost) of a best equal to a bound
 
     def args(self, device):
         """Positional arguments of :func:`K.group_argmin`."""
@@ -112,6 +114,11 @@ class CoarseSeamCases:
                self.band_of_block)
         return (*(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in ops),
                 self.n_groups)
+
+    def radii(self, device):
+        """The grid's chunk annuli, the ``radii`` of
+        :func:`K.group_argmin_streamed` (:func:`K.build_chunk_radii`)."""
+        return torch.as_tensor(K.build_chunk_radii(self.u_half, self.v_half), device=device)
 
 
 def coarse_seam_cases(n_cols=46, seed=0):
@@ -220,6 +227,164 @@ def coarse_seam_cases(n_cols=46, seed=0):
             expected[s] = winner(cells)
     return CoarseSeamCases(lut_c=lut_c, u_half=u_half, v_half=v_half, row_group=row_group,
                            feats=feats, band_of_block=band_of_block, expected=expected)
+
+
+# ---------------------------------------------------- K1 on the full grid
+
+def full_grid_seam_cases(n_cols=181, seed=0):
+    """:func:`coarse_seam_cases` lifted to a full grid for K1's streamed
+    form (rows of group g at ``16 g .. 16 g + 15``, 499 rows): each seam
+    group's rows open its 16-row group, the other rows of the group repeat
+    the first one's wind components with NaN LUT values (never winning), so
+    every designed answer stands."""
+    c = coarse_seam_cases(n_cols, seed)
+    n_rows = K.WGROUP * (N_GROUPS - 1) + 3
+    n_inc = c.lut_c.shape[0]
+    lut = np.full((n_inc, n_rows, n_cols), np.nan, np.float32)
+    u = np.empty((n_rows, n_cols), np.float32)
+    v = np.empty((n_rows, n_cols), np.float32)
+    for g in range(N_GROUPS):
+        src = np.nonzero(c.row_group == g)[0]
+        top = K.WGROUP * g
+        rows = min(K.WGROUP, n_rows - top)
+        lut[:, top:top + src.size] = c.lut_c[:, src]
+        u[top:top + rows] = c.u_half[src[0]]
+        v[top:top + rows] = c.v_half[src[0]]
+        u[top:top + src.size] = c.u_half[src]
+        v[top:top + src.size] = c.v_half[src]
+    return CoarseSeamCases(lut_c=lut, u_half=u, v_half=v,
+                           row_group=(np.arange(n_rows) // K.WGROUP).astype(np.int32),
+                           feats=c.feats, band_of_block=c.band_of_block, expected=c.expected)
+
+
+def _structured_grid(n_cols):
+    """The full grid's shape with a GMF-like layout: speeds 0.2-50 m/s by
+    0.1 over 499 rows, directions 0-180 deg over ``n_cols`` columns, u/2 and
+    v/2 on the speed's half-circle, and two smooth LUT bands (dB)."""
+    w = (0.2 + 0.1 * np.arange(499)).astype(np.float32)
+    phi = np.linspace(0.0, np.pi, n_cols)
+    u = (w[:, None] * np.cos(phi)[None, :] * 0.5).astype(np.float32)
+    v = (w[:, None] * np.sin(phi)[None, :] * 0.5).astype(np.float32)
+    base = -28.0 + 12.0 * np.log10(w)[:, None] + 2.0 * np.cos(2 * phi)[None, :]
+    return np.stack([base, base + 1.0]).astype(np.float32), u, v
+
+
+def _cell_near(u, v, x, y):
+    """The grid cell whose (u/2, v/2) lies nearest (x, y)."""
+    d = (u.astype(np.float64) - x) ** 2 + (v.astype(np.float64) - y) ** 2
+    return np.unravel_index(int(np.argmin(d)), d.shape)
+
+
+def prune_seam_cases(n_cols=181, seed=0):
+    """Operands for the streamed K1's pruning (csrc/group_argmin.cu) on a
+    structured 499 x ``n_cols`` grid (:func:`_structured_grid`). Designed
+    pixels have s0 = 0 dB and 1/dsig = 1024, far from every LUT value, so
+    that only cells whose LUT value was set for them can win:
+
+    * exact ties between a home group and a later one, and between a home
+      group and an earlier one (visited after it): cost 0.25 on cells of
+      groups 3 and 4 (the lower wins);
+    * a pixel whose best cost equals another group's lower bound exactly
+      (that group is kept: ``lb <= best`` is not strict);
+    * a group whose band-1 LUT values are all NaN, holding the prior of a
+      pixel (its home sweep finds nothing), and a NaN row;
+    * random pixels on the grid, in blocks sorted by their prior's radius and
+      in one block that is not, with pixels at radius 0, a denormal prior, a
+      prior of 1e30 and 1e-30, 1/dsig of 1e6 and 1e-6, an infinite 1/dsig
+      (every cost +inf or NaN), NaN s0 and a NaN prior, and padding.
+
+    ``expected``: slot -> the designed group. ``exact_lb``: the slot of the
+    pixel whose best equals a bound, the group of that bound and the cost.
+    The first three blocks hold the designed pixels (1/dsig 1024, s0 0 dB),
+    the rest random ones."""
+    rng = np.random.default_rng(seed)
+    bs = K.GROUP_BLOCK
+    lut, u, v = _structured_grid(n_cols)
+    n_rows = u.shape[0]
+    row_group = (np.arange(n_rows) // K.WGROUP).astype(np.int32)
+    n_groups = int(row_group[-1]) + 1
+    lut[1, K.WGROUP * 10:K.WGROUP * 11] = np.nan  # an all-NaN group in band 1
+    lut[1, 300] = np.nan  # a NaN row
+    # the designed pixels' blocks: the ties (band 0), the exact bound alone
+    # (band 0), the all-NaN group (band 1)
+    feats_d = np.full((3 * bs, 4), np.nan, np.float32)
+    expected = {}
+
+    def put(slot, ma2, mz2, group):
+        feats_d[slot] = 0.0, ma2, mz2, 1024.0
+        expected[slot] = group
+
+    def set_cell(cell, x, y, l):
+        u[cell], v[cell] = x, y
+        lut[0, cell[0], cell[1]] = l
+
+    # ties at cost 0.25 = 0.5^2, once through t1 = ((l - 0) * 1024)^2, once
+    # through t2: the prior (3.0, 0) lies in group 3's annulus only, (3.5,
+    # 0.5) in group 4's only
+    cells = [_cell_near(u, v, x, y) for x, y in ((3.0, 0.4), (3.5, 0.4), (3.0, 0.8), (3.5, 0.8))]
+    assert [int(row_group[c[0]]) for c in cells] == [3, 4, 3, 4]
+    set_cell(cells[0], 3.0, 0.0, 0.5 / 1024)
+    set_cell(cells[1], 3.5, 0.0, 0.0)
+    set_cell(cells[2], 3.0, 0.5, 0.0)
+    set_cell(cells[3], 3.5, 0.5, 0.5 / 1024)
+    put(0, 3.0, 0.0, 3)  # home 3; the later group 4 ties
+    put(40, 3.5, 0.5, 3)  # home 4; the earlier group 3, visited after it, ties
+
+    # best cost equal to group 13's bound: the prior sits on a cell of group
+    # 12 (t2 = t3 = 0), whose LUT value y / 1024 gives t1 = fl(y^2) = L =
+    # lb(p, 13)
+    radii = torch.as_tensor(K.build_chunk_radii(u, v))
+
+    def squares(r, c):
+        """(r, c, y, L) for each float y with fl(y^2) = L = lb(p, 13)."""
+        f = torch.tensor([[0.0, u[r, c], v[r, c], 1.0]], dtype=torch.float32)
+        lb = np.float32(K.chunk_lower_bounds(f, radii)[0, 13].item())
+        y = np.float32(np.sqrt(lb))
+        for cand in (y, np.nextafter(y, np.float32(0)), np.nextafter(y, np.float32(1))):
+            if lb > 0 and np.float32(cand * cand) == lb:
+                yield r, c, cand, lb
+
+    r, c, y, lb = next(hit for r in range(12 * K.WGROUP, 13 * K.WGROUP)
+                       for c in range(0, n_cols, 7) for hit in squares(r, c))
+    lut[0, r, c] = y / np.float32(1024)
+    put(bs, u[r, c], v[r, c], 12)
+
+    # a prior in band 1's all-NaN group 10; its designed cell in group 11
+    p10 = _cell_near(u, v, 8.35, 0.0)
+    c11 = _cell_near(u, v, 9.1, 1.0)
+    assert row_group[p10[0]] == 10 and row_group[c11[0]] == 11
+    lut[1, c11[0], c11[1]] = 0.0
+    put(2 * bs, u[p10], v[p10], 11)
+
+    # random pixels: s0 a cell's LUT value, the prior that cell's components
+    # plus noise; four blocks a band sorted by the prior's radius, one not
+    def random_block(band, n=bs):
+        cells = (rng.integers(0, n_rows, n), rng.integers(0, n_cols, n))
+        noise = rng.normal(0, 0.75, (n, 2))
+        return np.stack([lut[band][cells] + rng.normal(0, 0.05, n), u[cells] + noise[:, 0],
+                         np.abs(v[cells] + noise[:, 1]), np.full(n, 10.0)], 1).astype(np.float32)
+
+    blocks, block_band = [feats_d], [0, 0, 1]
+    for band in (0, 1):
+        px = random_block(band, 4 * bs)
+        px = px[np.argsort(np.hypot(px[:, 1], px[:, 2]), kind="stable")]
+        blocks += [px[k * bs:(k + 1) * bs] for k in range(4)]
+        block_band += [band] * 4
+    odd = random_block(0)  # unsorted, with the special pixels
+    specials = [(0.0, 0.0), (1e-40, 1e-40), (1e30, 1e30), (1e-30, 1e-30), (np.nan, 1.0),
+                (1.0, np.nan)]  # priors (ma/2, mz/2)
+    for k, prior in enumerate(specials):
+        odd[3 * k, 1:3] = prior
+    odd[40, 3], odd[41, 3], odd[42, 3] = 1e6, 1e-6, np.inf
+    odd[43, 0] = np.nan
+    odd[44, 1] = np.nan
+    odd[200:] = np.nan  # padding
+    blocks.append(odd)
+    block_band.append(0)
+    feats = np.concatenate(blocks).astype(np.float32)
+    return CoarseSeamCases(lut_c=lut, u_half=u, v_half=v, row_group=row_group, feats=feats,
+                           band_of_block=np.array(block_band, np.int32), n_groups=n_groups,
+                           expected=expected, exact_lb=(bs, 13, float(lb)))
 
 
 # ------------------------------------------------------------------ crosspol

@@ -32,12 +32,11 @@
 //    lives in one chain, and a chain meets its groups in ascending order
 //    (row_group is non-decreasing), so a strict '<' at each group boundary
 //    keeps the lowest group. Streamed form: chain c takes the rows r = c
-//    (mod 4), so each chain has work in every 16-row chunk; a chain keeps the
-//    lowest (row minimum, group) it met, by a strict '<' at each row's end,
-//    which over ascending rows keeps the lowest group among equal minima. In
-//    both, the answer is the least (minimum, group) over all entries, so the
-//    four chains' (minimum, group) merge through shared memory by (minimum,
-//    group).
+//    (mod 4), so each chain has work in every 16-row chunk; groups are met
+//    out of order (below), so a chain keeps the least (row minimum, group)
+//    lexicographically at each row's end. In both, the answer is the least
+//    (minimum, group) over all entries, so the four chains' (minimum, group)
+//    merge through shared memory by (minimum, group).
 //  * Only the group's minimum is needed, not the entry: a float4's four costs
 //    reduce by fminf (FMNMX, which drops a NaN operand exactly as 'if (j <
 //    m) m = j' does) and one more fminf folds them into the running minimum.
@@ -56,8 +55,57 @@
 // 2 x 4 x 256 partials, 45 KB a block at the production LUT. Streamed: two
 // stages of 3 x 16 x 184 floats filled by 4-byte cp.async (a LUT row of 181
 // floats is not 16-byte aligned in device memory), the next chunk's copies in
-// flight while this one is swept, and the partials written over the stages at
-// the end: 71 KB, three blocks an SM.
+// flight while this one is swept, the partials written over the stages at
+// the end, 256 merged best costs, the chunks' radii and ten masks of a bit a
+// chunk: 72 KB at the full grid's 32 chunks, three blocks an SM.
+//
+// The streamed form sweeps only the grid rows a pixel can still win in. What
+// bounds it is FP32 instructions on the cells it sweeps, so the work it skips
+// is what it gains (at the full grid, every pixel's 499 x 181 cells
+// otherwise). The unit of pruning is a chunk: the 16 rows of one stage. At
+// the full grid (row_group = row / 16) a chunk is one wind-speed group; on
+// any other non-decreasing row_group each of its rows keeps its own group.
+//  * The bound. A cell's cost is (t1 + t2) + t3 with t1 = ((l - s0) *
+//    inv_dsig)^2 >= 0 (or NaN, which never wins), t2 = fl(fl(u/2 - ma/2)^2) and
+//    t3 likewise, each step rounded to nearest. Rounding is monotone and t2
+//    is a float, so fl(t1 + t2) >= t2 and the cost >= fl(t2 + t3). With the
+//    exact distance D from the prior P = (ma/2, mz/2) to the cell (u/2, v/2),
+//    each subtraction, square and sum loses at most a factor (1 - 2^-24)
+//    (a subtraction or sum landing in the subnormal range is exact, a square
+//    landing there loses at most 2^-150), so fl(t2 + t3) >= D^2 (1 - 2^-22)
+//    - 2^-149; an overflow gives +inf, above any bound. The cells of chunk c
+//    lie on the annulus r_lo(c) <= |(u/2, v/2)| <= r_hi(c) (host-built in
+//    float64 from the float32 grids over the real columns, rounded outward),
+//    so by the triangle inequality D >= max(0, |P| - r_hi, r_lo - |P|).
+//    chunk_lower_bound computes that gap with |P| rounded down for the first
+//    term and up for the second, every subtraction and the square rounded
+//    down (__f*_rd, __f*_ru: no reliance on the rounding's size), then takes
+//    the relative margin 2^-20 (which covers the 2^-22) and 2^-149 off,
+//    rounding down. So lb(p, c) <= every cost of chunk c for pixel p, whatever
+//    its s0 and dsig: exact, not approximate.
+//  * The rule. A chunk whose lb is strictly above a cost the pixel already
+//    reached holds no cell at or below the pixel's final minimum. Skipping it
+//    can raise a group's minimum only where that minimum was above the final
+//    one, and every cell at the final minimum is swept: the first-minimum
+//    group stays bit for bit. The comparison keeps ties and a NaN lb or best;
+//    a pixel with a NaN feature has only NaN costs and needs no chunk.
+//  * The schedule. Each set first marks its pixels' home chunks (those of
+//    least lb: the annuli that hold |P|, or the nearest); the block sweeps
+//    their union first, from the one nearest the centre of their span, so
+//    that every pixel holds a good best cost early. After each chunk the
+//    chains' best costs merge into the block's (atomicMin on the bits of
+//    non-negative floats) and each warp marks, in a mask of a bit a chunk,
+//    the chunks of its quarter (c = chain mod 4) that a pixel of its set
+//    still needs by them. The block streams next the needed chunk nearest
+//    the centre through the double-buffered stages (the one in flight was
+//    chosen a chunk earlier), never copying a chunk that no mask names.
+//    Before it sweeps a staged chunk each warp re-checks its set's pixels
+//    against its own best costs and skips the chunk if none needs it. Blocks
+//    whose pixels have close priors (the fused_exact mode sorts each band's
+//    pixels by |P|) need few chunks; a prior far from the pixel's minimum
+//    costs the chunks between them.
+//  * With prune = 0 every chunk is streamed in ascending order through the
+//    same code: the A/B and test switch.
 #include "inversion_common.cuh"
 
 #include <climits>
@@ -258,12 +306,20 @@ __global__ void __launch_bounds__(kThreads) group_argmin_kernel(
 
 // ------------------------------------------------------------ streamed form
 
-constexpr int kChunkRows = 16;  // grid rows per shared-memory stage
+constexpr int kChunkRows = 16;  // grid rows per shared-memory stage: a chunk, the unit of pruning
+constexpr float kShrink = 0x1p-20f;  // the lower bound's relative margin (see the note)
 
-size_t streamed_smem_bytes(int n_cols) {
+// words of a mask of one bit a chunk
+__host__ __device__ constexpr int mask_words(int n_chunks) { return (n_chunks + 31) >> 5; }
+
+size_t streamed_smem_bytes(int n_cols, int n_chunks) {
   const size_t stages = 2 * 3 * static_cast<size_t>(kChunkRows) * row_stride(n_cols);
   const size_t partials = 2 * kChains * kPixels;
-  return (stages > partials ? stages : partials) * sizeof(float);
+  // the stages (or the partials written over them at the end), the merged
+  // best costs, the chunks' radii, a need mask per warp, the home mask and
+  // the chunks done
+  return ((stages > partials ? stages : partials) + kPixels + 2 * static_cast<size_t>(n_chunks) +
+          (kWarps + 2) * static_cast<size_t>(mask_words(n_chunks))) * sizeof(float);
 }
 
 // Issue the copies of grid rows [row0, row0 + rows) of the band's LUT plane
@@ -286,17 +342,75 @@ __device__ __forceinline__ void stage_chunk(float* stage, const float* __restric
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// One chain's pixels in the streamed form: features and the least (row
-// minimum, group) met so far, across chunks.
+// The lower bound of a pixel's cost over a chunk's cells, from the pixel's
+// prior (ma/2, mz/2) and the chunk's radii [r_lo, r_hi] (see the note). Every
+// operation rounds toward the side that keeps it a lower bound. NaN for a
+// NaN prior.
+__device__ __forceinline__ float chunk_lower_bound(float ma_half, float mz_half, float r_lo,
+                                                   float r_hi) {
+  const float rho_lo = __fsqrt_rd(__fadd_rd(__fmul_rd(ma_half, ma_half),
+                                            __fmul_rd(mz_half, mz_half)));
+  const float rho_hi = __fsqrt_ru(__fadd_ru(__fmul_ru(ma_half, ma_half),
+                                            __fmul_ru(mz_half, mz_half)));
+  float gap = fmaxf(__fsub_rd(rho_lo, r_hi), __fsub_rd(r_lo, rho_hi));
+  gap = gap < 0.0f ? 0.0f : gap;  // a NaN gap stays NaN
+  return __fsub_rd(__fmul_rd(__fmul_rd(gap, gap), 1.0f - kShrink), 0x1p-149f);
+}
+
+// Whether a pixel may still find its minimum in a chunk: its features hold
+// no NaN (else every cost is NaN) and the chunk's bound is not above its
+// best cost so far (not strict: a tie survives; a NaN bound keeps it).
+__device__ __forceinline__ bool pixel_live(const float4& f) {
+  return f.x == f.x && f.y == f.y && f.z == f.z && f.w == f.w;
+}
+
+__device__ __forceinline__ bool pixel_needs(const float4& f, float best, float2 radii) {
+  return pixel_live(f) && !(chunk_lower_bound(f.y, f.z, radii.x, radii.y) > best);
+}
+
+// One chain's pixels in the streamed form: features, the least (row
+// minimum, group) met so far, and the block's best cost of each pixel when
+// the warp last formed its need mask (+inf before).
 struct StreamChains {
   float4 f[kPix];  // s0, ma/2, mz/2, 1/dsig
   float best[kPix];
   int best_g[kPix];
+  float known[kPix];
   int grp[kPix];  // the live 32-pixel groups of the set, in order
 };
 
-// Sweep the chain's rows of one staged chunk (rows rr = chain, chain + 4, ...
-// of `rows`) for the G live groups.
+template <int G>
+struct Live {
+  static constexpr int value = G;
+};
+
+// Call f(Live<G>{}) for the set's count G of live 32-pixel groups (1-4);
+// nothing for a set without one.
+template <typename F>
+__device__ __forceinline__ void with_live(int n_live, F&& f) {
+  switch (n_live) {
+    case 1: f(Live<1>{}); break;
+    case 2: f(Live<2>{}); break;
+    case 3: f(Live<3>{}); break;
+    case 4: f(Live<4>{}); break;
+    default: break;
+  }
+}
+
+// Whether any pixel of the warp's set still needs a chunk, by this chain's
+// best costs: the set's re-check before it sweeps a staged chunk.
+template <int G>
+__device__ __forceinline__ bool set_needs(const StreamChains& ch, float2 radii) {
+  bool need = false;
+#pragma unroll
+  for (int k = 0; k < G; ++k) need |= pixel_needs(ch.f[k], fminf(ch.known[k], ch.best[k]), radii);
+  return __any_sync(0xffffffffu, need);
+}
+
+// Sweep the chain's rows of the staged chunk of grid rows [row0, row0 +
+// rows) (rows rr = chain, chain + 4, ...) for the G live 32-pixel groups;
+// each row's minimum updates the chain's (minimum, group) lexicographically,
+// since chunks are met out of order.
 template <int G>
 __device__ __forceinline__ void sweep_chunk(StreamChains& ch, const float* stage,
                                             const int* __restrict__ row_group, int row0,
@@ -326,7 +440,7 @@ __device__ __forceinline__ void sweep_chunk(StreamChains& ch, const float* stage
     const int g = __ldg(row_group + row0 + rr);
 #pragma unroll
     for (int k = 0; k < G; ++k) {
-      if (rmin[k] < ch.best[k]) {  // rows ascend: the first (lowest) group keeps a tie
+      if (rmin[k] < ch.best[k] || (rmin[k] == ch.best[k] && g < ch.best_g[k])) {
         ch.best[k] = rmin[k];
         ch.best_g[k] = g;
       }
@@ -334,11 +448,107 @@ __device__ __forceinline__ void sweep_chunk(StreamChains& ch, const float* stage
   }
 }
 
+// OR into mask (n_chunks bits) the home chunks of the warp's set: each live
+// pixel's chunks of least bound (the annuli that hold its prior's radius, or
+// the nearest where none does).
+template <int G>
+__device__ __forceinline__ void or_home_mask(const StreamChains& ch, const float2* radii,
+                                             int n_chunks, unsigned* mask) {
+  const int lane = threadIdx.x & 31;
+  float least[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    least[k] = CUDART_INF_F;
+    for (int c = 0; c < n_chunks; ++c)
+      least[k] = fminf(least[k], chunk_lower_bound(ch.f[k].y, ch.f[k].z, radii[c].x,
+                                                   radii[c].y));
+  }
+  for (int w = 0; w * 32 < n_chunks; ++w) {
+    unsigned bits = 0;
+    for (int j = 0; j < 32 && w * 32 + j < n_chunks; ++j) {
+      const float2 r = radii[w * 32 + j];
+      bool home = false;
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+        home |= pixel_live(ch.f[k]) &&
+                chunk_lower_bound(ch.f[k].y, ch.f[k].z, r.x, r.y) == least[k];
+      bits |= static_cast<unsigned>(home) << j;
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0 && bits) atomicOr(mask + w, bits);
+  }
+}
+
+// Write the warp's row of the need masks: bit c for each chunk c = chain
+// (mod 4) that a pixel of its set needs by the block's best costs so far,
+// read from the merged known_set into ch.known.
+template <int G>
+__device__ __forceinline__ void need_row(StreamChains& ch, const int* known_set,
+                                         const float2* radii, int n_chunks, int chain,
+                                         unsigned* row) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < G; ++k) ch.known[k] = __int_as_float(known_set[32 * ch.grp[k] + lane]);
+  for (int w = 0; w * 32 < n_chunks; ++w) {
+    unsigned bits = 0;
+    for (int c = 32 * w + chain; c < min(32 * w + 32, n_chunks); c += kChains) {
+      bool need = false;
+#pragma unroll
+      for (int k = 0; k < G; ++k) need |= pixel_needs(ch.f[k], ch.known[k], radii[c]);
+      bits |= static_cast<unsigned>(need) << (c - 32 * w);
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0) row[w] = bits;
+  }
+}
+
+// The block's candidate chunks in word w: the OR of its kMasks masks (mw
+// words apart), less the chunks done and `exclude`.
+constexpr int kMasks = kWarps + 1;  // a need mask per warp, and the home mask
+
+__device__ __forceinline__ unsigned candidates(const unsigned* masks, const unsigned* done,
+                                               int mw, int exclude, int w) {
+  unsigned bits = 0;
+#pragma unroll
+  for (int m = 0; m < kMasks; ++m) bits |= masks[m * mw + w];
+  bits &= ~done[w];
+  if (exclude >> 5 == w) bits &= ~(1u << (exclude & 31));
+  return bits;
+}
+
+// The candidate chunk nearest to the centre center2 / 2, the lower of two as
+// near; -1 if none. center2 = -1 visits in ascending order.
+__device__ __forceinline__ int nearest_chunk(const unsigned* masks, const unsigned* done,
+                                             int n_chunks, int center2, int exclude) {
+  const int mw = mask_words(n_chunks);
+  const int mid = center2 >> 1;  // the last chunk at or below the centre
+  int down = -1, up = -1;
+  for (int w = min(mid, n_chunks - 1) >> 5; w >= 0 && mid >= 0; --w) {
+    unsigned bits = candidates(masks, done, mw, exclude, w);
+    if (w == mid >> 5 && (mid & 31) < 31) bits &= (2u << (mid & 31)) - 1u;
+    if (bits) {
+      down = w * 32 + 31 - __clz(bits);
+      break;
+    }
+  }
+  for (int w = (mid + 1) >> 5; w * 32 < n_chunks; ++w) {
+    unsigned bits = candidates(masks, done, mw, exclude, w);
+    if (w == (mid + 1) >> 5) bits &= ~0u << ((mid + 1) & 31);
+    if (bits) {
+      up = w * 32 + __ffs(bits) - 1;
+      break;
+    }
+  }
+  if (down < 0 || up < 0) return down < 0 ? up : down;
+  return abs(2 * down - center2) <= abs(2 * up - center2) ? down : up;
+}
+
 __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
     const float* __restrict__ lut_c, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const int* __restrict__ row_group,
-    const float* __restrict__ feats, const int* __restrict__ band_of_block,
-    int* __restrict__ out, int n_rows, int n_cols, int n_groups) {
+    const float2* __restrict__ radii, const float* __restrict__ feats,
+    const int* __restrict__ band_of_block, int* __restrict__ out, int* __restrict__ swept,
+    int n_rows, int n_cols, int n_groups, int prune) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -346,10 +556,23 @@ __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
   const float4* feats_b = reinterpret_cast<const float4*>(feats) + static_cast<size_t>(b) * kPixels;
   int* out_b = out + static_cast<size_t>(b) * kPixels;
 
-  if (padding_only(feats_b, out_b, n_groups)) return;
+  if (padding_only(feats_b, out_b, n_groups)) {
+    if (swept != nullptr && threadIdx.x < 3) swept[3 * b + threadIdx.x] = 0;
+    return;
+  }
+  __shared__ int s_pixel_rows;  // the (pixel, row) pairs swept, for `swept`
 
+  const int n_chunks = (n_rows + kChunkRows - 1) / kChunkRows;
+  const int mw = mask_words(n_chunks);
   const int ld = row_stride(n_cols);
   const int plane = kChunkRows * ld;
+  const size_t stages = 2 * 3 * plane;
+  const size_t partials = 2 * kChains * kPixels;
+  int* s_known = reinterpret_cast<int*>(smem + (stages > partials ? stages : partials));
+  float2* s_radii = reinterpret_cast<float2*>(s_known + kPixels);
+  unsigned* s_masks = reinterpret_cast<unsigned*>(s_radii + n_chunks);  // warps', then home
+  unsigned* s_home = s_masks + kWarps * mw;
+  unsigned* s_done = s_masks + kMasks * mw;
   const float* lut_b = lut_c + static_cast<size_t>(band_of_block[b]) * n_rows * n_cols;
   // the stride's pad columns of both stages, which no copy touches: a NaN
   // LUT value (its cost never wins) and zero u/2, v/2
@@ -359,10 +582,20 @@ __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
     smem[row * ld + n_cols + (i - row * pad)] = ((row / kChunkRows) % 3 == 0) ? CUDART_NAN_F
                                                                              : 0.0f;
   }
+  for (int i = threadIdx.x; i < n_chunks; i += kThreads) s_radii[i] = radii[i];
+  if (threadIdx.x == 0) s_pixel_rows = 0;
+  for (int i = threadIdx.x; i < kPixels; i += kThreads) s_known[i] = __float_as_int(CUDART_INF_F);
+  for (int i = threadIdx.x; i < (kMasks + 1) * mw; i += kThreads) {
+    // without pruning every chunk is a home chunk and stays one
+    const int left = n_chunks - 32 * (i % mw);
+    const bool home = i / mw == kWarps;
+    s_masks[i] = prune || !home ? 0u : left >= 32 ? ~0u : left > 0 ? (1u << left) - 1u : 0u;
+  }
 
   const int set = warp / kChains;
   const int chain = warp % kChains;
   const float4* feats_set = feats_b + set * kSetPixels;
+  int* known_set = s_known + set * kSetPixels;
   unsigned live = 0;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
@@ -378,33 +611,90 @@ __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
     ch.f[k] = k < n_live ? feats_set[32 * ch.grp[k] + lane] : make_float4(0.f, 0.f, 0.f, 0.f);
     ch.best[k] = CUDART_INF_F;
     ch.best_g[k] = INT_MAX;
+    ch.known[k] = CUDART_INF_F;
+  }
+  int set_px = 0;  // the set's pixels with an s0
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (k < n_live) set_px += __popc(__ballot_sync(0xffffffffu, ch.f[k].x == ch.f[k].x));
+  }
+  __syncthreads();
+
+  // the home chunks (chain 0's warps mark them) and their centre
+  if (prune && chain == 0) {
+    with_live(n_live, [&](auto n) {
+      or_home_mask<decltype(n)::value>(ch, s_radii, n_chunks, s_home);
+    });
+  }
+  __syncthreads();
+  int center2 = -1;  // without pruning: ascending
+  if (prune) {
+    const int first = nearest_chunk(s_masks, s_done, n_chunks, -1, -1);
+    const int last = nearest_chunk(s_masks, s_done, n_chunks, 2 * n_chunks, -1);
+    center2 = first + last;
   }
 
-  // every thread takes part in the staging and its barriers; a set with no
-  // live group sweeps nothing
-  const int n_chunks = (n_rows + kChunkRows - 1) / kChunkRows;
-  stage_chunk(smem, lut_b, u_half, v_half, 0, min(kChunkRows, n_rows), n_cols, ld);
-  for (int k = 0; k < n_chunks; ++k) {
-    const int row0 = k * kChunkRows;
-    if (k + 1 < n_chunks) {  // prefetch the next chunk into the other stage
-      const int next = row0 + kChunkRows;
-      stage_chunk(smem + ((k + 1) & 1) * 3 * plane, lut_b, u_half, v_half, next,
-                  min(kChunkRows, n_rows - next), n_cols, ld);
+  // Stream the chunks through the two stages, the next chunk's copies in
+  // flight while this one is swept: the candidate nearest the centre, chosen
+  // before the sweep from the masks formed after the previous chunk (or
+  // after it, when there was none). A set sweeps a staged chunk only if one
+  // of its pixels still needs it; its chains' best costs then merge into the
+  // block's (non-negative floats order as integers).
+  int n_swept = 0, rows_swept = 0;
+  int cur = nearest_chunk(s_masks, s_done, n_chunks, center2, -1);
+  if (cur >= 0) {
+    stage_chunk(smem, lut_b, u_half, v_half, cur * kChunkRows,
+                min(kChunkRows, n_rows - cur * kChunkRows), n_cols, ld);
+  }
+  for (int k = 0; cur >= 0; ++k) {
+    int next = nearest_chunk(s_masks, s_done, n_chunks, center2, cur);
+    if (next >= 0) {  // prefetch the next chunk into the other stage
+      stage_chunk(smem + ((k + 1) & 1) * 3 * plane, lut_b, u_half, v_half, next * kChunkRows,
+                  min(kChunkRows, n_rows - next * kChunkRows), n_cols, ld);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
-    const float* stage = smem + (k & 1) * 3 * plane;
+    const int row0 = cur * kChunkRows;
     const int rows = min(kChunkRows, n_rows - row0);
-    switch (n_live) {
-      case 1: sweep_chunk<1>(ch, stage, row_group, row0, rows, chain, ld); break;
-      case 2: sweep_chunk<2>(ch, stage, row_group, row0, rows, chain, ld); break;
-      case 3: sweep_chunk<3>(ch, stage, row_group, row0, rows, chain, ld); break;
-      case 4: sweep_chunk<4>(ch, stage, row_group, row0, rows, chain, ld); break;
-      default: break;  // no live group in this set
+    with_live(n_live, [&](auto n) {
+      constexpr int G = decltype(n)::value;
+      if (!prune || set_needs<G>(ch, s_radii[cur])) {
+        sweep_chunk<G>(ch, smem + (k & 1) * 3 * plane, row_group, row0, rows, chain, ld);
+        if (swept != nullptr && lane == 0)
+          atomicAdd(&s_pixel_rows, (rows - chain + kChains - 1) / kChains * set_px);
+      }
+      if (prune) {
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          atomicMin(known_set + 32 * ch.grp[j] + lane, __float_as_int(ch.best[j]));
+      }
+    });
+    __syncthreads();  // the stage is refilled next; the merged best costs are complete
+    if (prune) {
+      with_live(n_live, [&](auto n) {
+        need_row<decltype(n)::value>(ch, known_set, s_radii, n_chunks, chain,
+                                     s_masks + warp * mw);
+      });
     }
-    __syncthreads();  // the stage is refilled next, or reused for the partials
+    // from now on the need masks alone name the candidates
+    if (prune && threadIdx.x < mw) s_home[threadIdx.x] = 0u;
+    if (threadIdx.x == 0) {
+      s_done[cur >> 5] |= 1u << (cur & 31);
+      if (next >= 0) s_done[next >> 5] |= 1u << (next & 31);
+    }
+    __syncthreads();
+    ++n_swept;
+    rows_swept += rows;
+    if (next < 0) {  // nothing was in flight: choose again from the new masks
+      next = nearest_chunk(s_masks, s_done, n_chunks, center2, -1);
+      if (next >= 0) {
+        stage_chunk(smem + ((k + 1) & 1) * 3 * plane, lut_b, u_half, v_half, next * kChunkRows,
+                    min(kChunkRows, n_rows - next * kChunkRows), n_cols, ld);
+      }
+    }
+    cur = next;
   }
 
   float* part_best = smem;
@@ -421,6 +711,22 @@ __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
   __syncthreads();
 
   merge_partials(feats_b, part_best, part_g, out_b, n_groups);
+  if (swept != nullptr && threadIdx.x == 0) {
+    swept[3 * b] = n_swept;
+    swept[3 * b + 1] = rows_swept;
+    swept[3 * b + 2] = s_pixel_rows;
+  }
+}
+
+// The streamed form's lower bound for each (pixel, chunk): test entry.
+__global__ void chunk_lower_bounds_kernel(const float4* __restrict__ feats,
+                                          const float2* __restrict__ radii, float* __restrict__ out,
+                                          int n_px, int n_chunks) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(n_px) * n_chunks) return;
+  const float4 f = feats[i / n_chunks];
+  const float2 r = radii[i % n_chunks];
+  out[i] = chunk_lower_bound(f.y, f.z, r.x, r.y);
 }
 
 }  // namespace
@@ -445,15 +751,28 @@ extern "C" int xs_group_argmin(const float* lut_c, const float* u_half, const fl
 
 extern "C" int xs_group_argmin_streamed(const float* lut_c, const float* u_half,
                                         const float* v_half, const int* row_group,
-                                        const float* feats, const int* band_of_block, int* out,
+                                        const float* radii, const float* feats,
+                                        const int* band_of_block, int* out, int* swept,
                                         int n_blocks, int block, int n_rows, int n_cols,
-                                        int n_groups, void* stream) {
+                                        int n_groups, int prune, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const size_t smem = streamed_smem_bytes(n_cols);
+  const size_t smem = streamed_smem_bytes(n_cols, (n_rows + kChunkRows - 1) / kChunkRows);
   cudaError_t err = xs::allow_smem(group_argmin_streamed_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   group_argmin_streamed_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lut_c, u_half, v_half, row_group, feats, band_of_block, out, n_rows, n_cols, n_groups);
+      lut_c, u_half, v_half, row_group, reinterpret_cast<const float2*>(radii), feats,
+      band_of_block, out, swept, n_rows, n_cols, n_groups, prune);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int xs_chunk_lower_bounds(const float* feats, const float* radii, float* out,
+                                     int n_px, int n_chunks, void* stream) {
+  const size_t n = static_cast<size_t>(n_px) * n_chunks;
+  if (n == 0) return 0;
+  chunk_lower_bounds_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(feats), reinterpret_cast<const float2*>(radii), out, n_px,
+      n_chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,11 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   the fused mode's coarse one (~0.8 m/s x 4 deg), held whole in shared
   memory; :func:`group_argmin_streamed`, its second form, takes a grid too
   large for that, the fused_exact mode's full one, streamed through shared
-  memory 16 rows at a time. Both deal the work to four chains a pixel and
-  merge them by (minimum, group).
+  memory 16 rows (a chunk) at a time, and sweeps only the chunks an exact
+  lower bound on their costs cannot rule out (:func:`build_chunk_radii`,
+  :func:`chunk_lower_bounds`, the plain model of its schedule
+  ``_group_argmin_pruned_model``). Both deal the work to four chains a pixel
+  and merge them by (minimum, group).
 * K2 :func:`slab_refine_fused` replaces ``slab_refine_fused_pallas``: per
   128-pixel block sharing one (band, group), the direct-form cost over an
   ``n_rows`` x all-phi LUT slab (``SLAB_ROWS`` = 48 in the fused mode,
@@ -74,7 +77,10 @@ __all__ = [
     "build_crosspol_arrays",
     "build_decode_arrays",
     "build_direct_arrays",
+    "build_chunk_radii",
     "build_kernels",
+    "check_row_group",
+    "chunk_lower_bounds",
     "crosspol_argmin",
     "crosspol_quotient",
     "crosspol_quotient_sweep",
@@ -165,6 +171,56 @@ def build_coarse_arrays(lut_db, u, v, stride_w, stride_p):
     return lut_c, u_half, v_half, row_group, (n_wspd + WGROUP - 1) // WGROUP
 
 
+def _f32_toward(x, up):
+    """float64 values rounded to float32 toward +inf (``up``) or -inf."""
+    f = x.astype(np.float32)
+    wrong = f.astype(np.float64) < x if up else f.astype(np.float64) > x
+    return np.where(wrong, np.nextafter(f, np.float32(np.inf if up else -np.inf)), f)
+
+
+def build_chunk_radii(u_half, v_half):
+    """The streamed K1's annulus per chunk of ``WGROUP`` grid rows (at the
+    full grid, one wind-speed group): ``(ceil(R / WGROUP), 2)`` f32 ``[r_lo,
+    r_hi]``, the least and largest ``|(u/2, v/2)|`` over the cells of rows
+    ``[16 c, 16 c + 16)``, computed in float64 from the float32 grids (NaN
+    cells left out) and rounded outward, so that every cell's radius lies
+    inside. A chunk with no cell gets ``[0, inf]``."""
+    u = np.asarray(u_half, np.float32).astype(np.float64)
+    v = np.asarray(v_half, np.float32).astype(np.float64)
+    r = np.sqrt(u * u + v * v)  # squares exact; the sum and root err < 2**-51
+    n_chunks = -(-r.shape[0] // WGROUP)
+    radii = np.empty((n_chunks, 2))
+    for c in range(n_chunks):
+        cells = r[c * WGROUP:(c + 1) * WGROUP]
+        cells = cells[~np.isnan(cells)]
+        radii[c] = (cells.min(), cells.max()) if cells.size else (0.0, np.inf)
+    return np.stack([_f32_toward(radii[:, 0] * (1 - 2.0 ** -50), up=False),
+                     _f32_toward(radii[:, 1] * (1 + 2.0 ** -50), up=True)], 1)
+
+
+def check_row_group(row_group, n_groups):
+    """Raise ``ValueError`` unless ``row_group`` (R,) holds groups in
+    ``[0, n_groups)`` that do not decrease along the grid's rows (K1's
+    chains keep a group's rows in order).
+
+    A tensor is read back once (a host wait). One that passes is marked, and
+    the K1 wrappers do not check it again until it changes in place: the
+    fused closure checks its table here once, where it builds it."""
+    rg = np.asarray(row_group.detach().cpu() if torch.is_tensor(row_group) else row_group)
+    if rg.size:
+        mn, mx = int(rg.min()), int(rg.max())
+        if mn < 0 or mx >= n_groups:
+            raise ValueError(f"row_group values [{mn}, {mx}] outside [0, {n_groups})")
+        if (np.diff(rg) < 0).any():
+            raise ValueError("row_group must not decrease")
+    if torch.is_tensor(row_group):
+        row_group._k1_checked = (row_group._version, n_groups)
+
+
+def _row_group_checked(row_group, n_groups):
+    return getattr(row_group, "_k1_checked", None) == (row_group._version, n_groups)
+
+
 def build_decode_arrays(co_wspd, wp_rows):
     """wspd per padded LUT row, ``(Wp,)`` f32, 0 beyond the true rows."""
     w = np.asarray(co_wspd, np.float32)
@@ -201,6 +257,16 @@ def _chunk(chunk_blocks, per_block):
     return max(1, min(chunk_blocks, _PLAIN_ELEMENTS // max(1, per_block)))
 
 
+def _row_minima(lut_c, u_half, v_half, fb, band):
+    """Per pixel of blocks with features ``fb`` (nb, block, 4) and LUT bands
+    ``band`` (nb,), the least cost of each grid row, NaN entries left out
+    (they never win): (nb, block, R)."""
+    fb = fb[:, :, :, None, None]
+    j = _cost(lut_c[band.to(torch.int64)][:, None], u_half, v_half, fb[:, :, 0], fb[:, :, 1],
+              fb[:, :, 2], fb[:, :, 3])  # (nb, block, R, C)
+    return torch.where(torch.isnan(j), float("inf"), j).amin(-1)
+
+
 def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
                         block, chunk_blocks=16):
     n_blocks = band_of_block.shape[0]
@@ -213,16 +279,186 @@ def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, 
     rg = row_group.to(torch.int64)
     for c0 in range(0, live.shape[0], chunk_blocks):
         sel = live[c0:c0 + chunk_blocks]
-        fb = f[sel][:, :, :, None, None]  # (nb, block, 4, 1, 1)
-        j = _cost(lut_c[band_of_block[sel].to(torch.int64)][:, None], u_half, v_half,
-                  fb[:, :, 0], fb[:, :, 1], fb[:, :, 2], fb[:, :, 3])  # (nb, block, R, C)
-        rowmin = torch.where(torch.isnan(j), inf, j).amin(-1)  # NaN entries never win
-        gmin = torch.full(rowmin.shape[:-1] + (n_groups,), inf, dtype=j.dtype, device=j.device)
+        rowmin = _row_minima(lut_c, u_half, v_half, f[sel], band_of_block[sel])
+        gmin = torch.full(rowmin.shape[:-1] + (n_groups,), inf, dtype=rowmin.dtype,
+                          device=rowmin.device)
         gmin.scatter_reduce_(-1, rg.expand_as(rowmin), rowmin, "amin")
         best = torch.argmin(gmin, -1)  # first minimum: lowest tied group
         found = torch.gather(gmin, -1, best[..., None])[..., 0] < inf
         out[sel] = torch.where(found, best, n_groups - 1).to(torch.int32)
     return out
+
+
+# float32 arithmetic rounded toward -inf or +inf (the __f*_rd / __f*_ru of the
+# streamed K1's bound), emulated in float64
+_F32_INF = torch.tensor(float("inf"), dtype=torch.float32)
+
+
+def _to_f32_toward(hi, lo, up):
+    """float32 rounding of the exact value ``hi + lo`` (float64, ``lo`` the
+    error term of ``hi``) toward +inf (``up``) or -inf. ``f - hi`` is exact
+    (f is within a float32 ulp of hi), so the sign of ``(f - hi) - lo`` is
+    that of f minus the exact value."""
+    f = hi.to(torch.float32)
+    d = (f.to(torch.float64) - hi) - lo
+    if up:
+        return torch.where(d < 0, torch.nextafter(f, _F32_INF), f)
+    return torch.where(d > 0, torch.nextafter(f, -_F32_INF), f)
+
+
+def _mul_toward(a, b, up):
+    return _to_f32_toward(a.double() * b.double(), 0.0, up)  # float32 products are exact
+
+
+def _add_toward(a, b, up):
+    a, b = a.double(), b.double()
+    s = a + b
+    bb = s - a
+    return _to_f32_toward(s, (a - (s - bb)) + (b - bb), up)  # TwoSum's error term
+
+
+def _sqrt_toward(x, up):
+    f = torch.sqrt(x.double()).to(torch.float32)
+    sq = f.double() * f.double()  # exact
+    if up:
+        return torch.where(sq < x.double(), torch.nextafter(f, _F32_INF), f)
+    return torch.where(sq > x.double(), torch.nextafter(f, -_F32_INF), f)
+
+
+def _lower_bounds_plain(feats, radii):
+    """The streamed K1's lower bound per (pixel, chunk) (``chunk_lower_bound``
+    in csrc/group_argmin.cu, operation for operation)."""
+    ma, mz = feats[:, 1], feats[:, 2]
+    rho_lo = _sqrt_toward(_add_toward(_mul_toward(ma, ma, False), _mul_toward(mz, mz, False),
+                                      False), False)[:, None]
+    rho_hi = _sqrt_toward(_add_toward(_mul_toward(ma, ma, True), _mul_toward(mz, mz, True),
+                                      True), True)[:, None]
+    r_lo, r_hi = radii[:, 0], radii[:, 1]
+    gap = torch.fmax(_add_toward(rho_lo, -r_hi, False), _add_toward(r_lo, -rho_hi, False))
+    gap = torch.where(gap < 0, 0.0, gap)  # a NaN gap stays NaN
+    shrink = torch.tensor(1.0 - 2.0 ** -20, dtype=torch.float32)
+    tiny = torch.tensor(2.0 ** -149, dtype=torch.float32)
+    return _add_toward(_mul_toward(_mul_toward(gap, gap, False), shrink, False), -tiny, False)
+
+
+def _nearest_chunk(candidates, center2):
+    """The candidate chunk nearest to the centre ``center2 / 2`` (the lower
+    of two as near), or -1: the streamed K1's visiting order."""
+    idx = torch.nonzero(candidates)[:, 0]
+    if idx.numel() == 0:
+        return -1
+    return int(idx[torch.argmin(torch.abs(2 * idx - center2))])  # argmin: first, the lower
+
+
+def _group_argmin_pruned_model(lut_c, u_half, v_half, row_group, feats, band_of_block,
+                               n_groups, radii, block=GROUP_BLOCK, prune=True, chunk_blocks=16):
+    """Plain model of the streamed K1's pruned schedule
+    (``group_argmin_streamed_kernel`` in csrc/group_argmin.cu), block by
+    block, over chunks of ``WGROUP`` grid rows. The block's home chunks are
+    each live pixel's chunks of least bound; the centre is the midpoint of
+    the first and last of them. The block sweeps first the home chunk
+    nearest the centre, then, one at a time, the chunk nearest the centre
+    among those not yet swept that a pixel needs: the next chunk is chosen
+    before the current one is swept (from the need formed after the previous
+    one, or the home chunks before the first), and the need is formed anew,
+    from the block's merged best costs, after each chunk; when nothing was
+    chosen in advance the choice is made again after the sweep. A
+    (128-pixel set, row chain) sweeps a staged chunk only if a pixel of its
+    set needs it by the smaller of the chain's best so far and the block's
+    best when the need was last formed; chain c takes the rows r = c (mod 4)
+    and keeps (minimum, ``row_group[r]``) lexicographically.
+    ``prune=False``: every chunk, ascending.
+
+    For the tests: it decides what the kernel decides, on the CPU, for any
+    non-decreasing ``row_group``. Returns the groups (n_blocks, block) i32
+    and the kernel's ``swept`` output (n_blocks, 3) i32: per block, the
+    chunks and grid rows staged and the (pixel, row) pairs swept, a pixel
+    counted where its s0 is not NaN."""
+    check_row_group(row_group, n_groups)
+    inf = float("inf")
+    n_blocks = band_of_block.shape[0]
+    n_rows = u_half.shape[0]
+    n_chunks = -(-n_rows // WGROUP)
+    chunk_blocks = _chunk(chunk_blocks, block * u_half.numel())
+    f = feats.reshape(n_blocks, block, 4)
+    out = torch.full((n_blocks, block), n_groups - 1, dtype=torch.int32)
+    swept = torch.zeros((n_blocks, 3), dtype=torch.int32)
+    chunk_rows = [min(WGROUP, n_rows - WGROUP * c) for c in range(n_chunks)]
+    # a chunk's rows of each chain: rows r = h (mod 4) below its height
+    chain_rows = [torch.tensor([(rows - h + 3) // 4 for h in range(4)]) for rows in chunk_rows]
+    # each (chunk, chain) row's group, the last rows' padded with the last group
+    rg = torch.as_tensor(np.asarray(row_group), dtype=torch.int64)
+    rg = torch.cat([rg, rg[-1:].expand(n_chunks * WGROUP - n_rows)])
+    n_sets = block // 128
+    running = torch.nonzero(~torch.isnan(f[:, :, 0]).all(1))[:, 0]  # not padding only
+    for c0 in range(0, running.shape[0], chunk_blocks):
+        sel = running[c0:c0 + chunk_blocks]
+        fb = f[sel]
+        rowmin = _row_minima(lut_c, u_half, v_half, fb, band_of_block[sel])
+        pad = torch.full(rowmin.shape[:2] + (n_chunks * WGROUP - n_rows,), inf,
+                         dtype=rowmin.dtype)
+        # per (chunk, chain), the least (minimum, group) of the chain's rows:
+        # row 16 c + 4 i + h is chain h's; rows ascend and their groups do
+        # not decrease, so the first row at the minimum has the least group
+        rm = torch.cat([rowmin, pad], -1).reshape(*rowmin.shape[:2], n_chunks, WGROUP // 4, 4)
+        cmin, first = rm.min(3)
+        cgrp = rg.reshape(n_chunks, WGROUP // 4, 4).expand(*rm.shape)
+        cgrp = torch.gather(cgrp, 3, first[:, :, :, None])[:, :, :, 0]
+        lbs = _lower_bounds_plain(fb.reshape(-1, 4), radii).reshape(-1, block, n_chunks)
+        lives = ~torch.isnan(fb).any(-1)  # a NaN feature: only NaN costs, no chunk needed
+        set_px = (~torch.isnan(fb[:, :, 0])).reshape(-1, n_sets, block // n_sets).sum(-1)
+        for i, b in enumerate(sel.tolist()):
+            lb, live = lbs[i], lives[i]
+            best = torch.full((block, 4), inf, dtype=rowmin.dtype)
+            best_g = torch.full((block, 4), 2 ** 31 - 1, dtype=torch.int64)
+            known = torch.full((block,), inf, dtype=rowmin.dtype)  # merged best costs
+            seen = known.clone()  # known when the need was last formed
+            done = torch.zeros(n_chunks, dtype=torch.bool)
+            if prune:
+                least = torch.where(torch.isnan(lb), inf, lb).amin(-1, keepdim=True)
+                need = (live[:, None] & (lb == least)).any(0)  # the home chunks
+                home = torch.nonzero(need)[:, 0]
+                center2 = int(home[0] + home[-1]) if home.numel() else -1
+            else:
+                need = torch.ones(n_chunks, dtype=torch.bool)
+                center2 = -1  # ascending
+
+            def choose(exclude=-1):
+                cand = need & ~done
+                if exclude >= 0:
+                    cand[exclude] = False
+                return _nearest_chunk(cand, center2)
+
+            c = choose()
+            while c >= 0:
+                nxt = choose(exclude=c)
+                if prune:
+                    thr = torch.minimum(seen[:, None], best)
+                    sets = (live[:, None] & ~(lb[:, c, None] > thr)).reshape(n_sets, -1, 4)
+                    set_sweeps = sets.any(1)  # (set, chain)
+                else:
+                    set_sweeps = torch.ones((n_sets, 4), dtype=torch.bool)
+                sweeps = set_sweeps.repeat_interleave(block // n_sets, 0)
+                m, g = cmin[i, :, c], cgrp[i, :, c]
+                take = sweeps & ((m < best) | ((m == best) & (g < best_g)))
+                best.copy_(torch.where(take, m, best))
+                best_g.copy_(torch.where(take, g, best_g))
+                torch.minimum(known, best.amin(-1), out=known)
+                swept[b, 0] += 1
+                swept[b, 1] += chunk_rows[c]
+                swept[b, 2] += int((set_sweeps * chain_rows[c] * set_px[i][:, None]).sum())
+                done[c] = True
+                if nxt >= 0:
+                    done[nxt] = True
+                if prune:
+                    seen = known.clone()
+                    need = (live[:, None] & ~(lb > seen[:, None])).any(0)
+                c = nxt if nxt >= 0 else choose()
+            # merge the chains by (minimum, group)
+            low = best.amin(-1, keepdim=True)
+            g_low = torch.where(best == low, best_g, 2 ** 31 - 1).amin(-1)
+            out[b] = torch.where(low[:, 0] < inf, g_low, n_groups - 1).to(torch.int32)
+    return out, swept
 
 
 def _direct_slab_cost(lut_pad, u_half, v_half):
@@ -386,7 +622,7 @@ def _load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.xs_group_argmin.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.xs_group_argmin.restype = i
-            lib.xs_group_argmin_streamed.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.xs_group_argmin_streamed.argtypes = [p] * 9 + [i] * 6 + [p]
             lib.xs_group_argmin_streamed.restype = i
             lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 7 + [p]
             lib.xs_slab_refine_fused.restype = i
@@ -402,6 +638,8 @@ def _load():
             lib.xs_slab_forms.restype = i
             lib.xs_group_argmin_variant.argtypes = [p] * 4 + [i] * 4 + [p]
             lib.xs_group_argmin_variant.restype = i
+            lib.xs_chunk_lower_bounds.argtypes = [p] * 3 + [i] * 2 + [p]
+            lib.xs_chunk_lower_bounds.restype = i
             lib.xs_error_string.argtypes = [i]
             lib.xs_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -429,18 +667,12 @@ def _cuda_args(device, named):
         _require(t, name, dtype, shape)
 
 
-def _in_range(t, lo, hi, name, ascending=False):
-    """Indices the kernel dereferences must lie in [lo, hi), and not
-    decrease along ``t`` with ``ascending`` (one sync)."""
+def _in_range(t, lo, hi, name):
+    """Indices the kernel dereferences must lie in [lo, hi) (one sync)."""
     if t.numel():
-        stats = list(torch.aminmax(t))
-        if ascending and t.numel() > 1:
-            stats.append(torch.diff(t).amin())
-        mn, mx, *step = (int(x) for x in torch.stack(stats).tolist())
+        mn, mx = (int(x) for x in torch.stack(torch.aminmax(t)).tolist())
         if mn < lo or mx >= hi:
             raise ValueError(f"{name} values [{mn}, {mx}] outside [{lo}, {hi})")
-        if step and step[0] < 0:
-            raise ValueError(f"{name} must not decrease")
 
 
 # ------------------------------------------------------------------ wrappers
@@ -463,32 +695,65 @@ def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_group
     (n_blocks,) band per block. Returns (n_blocks, block) i32; pixels with no
     finite cost get ``n_groups - 1``. The kernel takes blocks of
     ``GROUP_BLOCK`` pixels, a non-decreasing ``row_group`` (each of its
-    chains meets its groups in ascending order) and a grid that fits a
-    block's shared memory (:func:`k1_staged_fits`); the plain version takes
-    any.
+    chains meets its groups in ascending order; checked once per table,
+    :func:`check_row_group`) and a grid that fits a block's shared memory
+    (:func:`k1_staged_fits`); the plain version takes any.
     """
     return _group_argmin("group_argmin", lut_c, u_half, v_half, row_group, feats,
                          band_of_block, n_groups, block)
 
 
 def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                          block=GROUP_BLOCK):
-    """K1's streamed form: :func:`group_argmin` on a grid of any size, its
+                          block=GROUP_BLOCK, *, radii, swept=None, _prune=True):
+    """K1's streamed form: :func:`group_argmin` on a grid of any height, its
     rows streamed through shared memory 16 at a time (the fused_exact mode's
-    full grid, built by :func:`build_coarse_arrays` at strides 1). Same
-    arguments and result."""
+    full grid, built by :func:`build_coarse_arrays` at strides 1, or a coarse
+    grid too large for the staged form). Same arguments and result.
+
+    The kernel sweeps only the chunks of 16 rows a pixel can still win in, by
+    an exact lower bound on their costs (csrc/group_argmin.cu's note): the
+    answer is the unpruned one, bit for bit, for any non-decreasing
+    ``row_group``. ``radii``: the grid's ``(ceil(R / 16), 2)`` f32 annuli of
+    :func:`build_chunk_radii`, built once per grid, on the card. ``swept``,
+    an optional ``(n_blocks, 3)`` int32 card tensor, receives each block's
+    chunks and grid rows staged and (pixel, row) pairs swept, a pixel
+    counted where its s0 is not NaN. ``_prune=False`` sweeps every chunk (A/B
+    and tests). The plain version ignores the last three."""
     return _group_argmin("group_argmin_streamed", lut_c, u_half, v_half, row_group, feats,
-                         band_of_block, n_groups, block)
+                         band_of_block, n_groups, block, radii, swept, _prune)
+
+
+def chunk_lower_bounds(feats, radii):
+    """The streamed K1's lower bound per (pixel, chunk): ``(n, n_chunks)``
+    f32 from feats (n, 4) and radii (n_chunks, 2). On a CUDA tensor the
+    kernel's own device function computes it; on a CPU tensor its float64
+    emulation. On no path of the inversion; counts no launch."""
+    if feats.device.type == "cpu":
+        return _lower_bounds_plain(feats, radii)
+    if feats.device.type != "cuda":
+        raise ValueError(f"chunk_lower_bounds: unsupported device {feats.device}")
+    n, n_chunks = feats.shape[0], radii.shape[0]
+    _cuda_args(feats.device, {"feats": (feats, torch.float32, (n, 4)),
+                              "radii": (radii, torch.float32, (n_chunks, 2))})
+    out = torch.empty((n, n_chunks), dtype=torch.float32, device=feats.device)
+    lib = _load()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_chunk_lower_bounds(feats.data_ptr(), radii.data_ptr(), out.data_ptr(), n,
+                                       n_chunks, stream)
+    _check(lib, rc, "chunk_lower_bounds")
+    return out
 
 
 def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                  block):
+                  block, radii=None, swept=None, prune=True):
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
         return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                    n_groups, block)
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
+    streamed = name == "group_argmin_streamed"
     n_rows, n_cols = u_half.shape
     band = band_of_block.to(torch.int32)
     _cuda_args(feats.device, {
@@ -502,19 +767,33 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
         raise ValueError(f"{name}: the kernel takes blocks of {GROUP_BLOCK} pixels")
     if feats.data_ptr() % 16:
         raise ValueError(f"{name}: feats must be 16-byte aligned")
-    if name == "group_argmin" and not k1_staged_fits(n_rows, n_cols):
+    if not streamed and not k1_staged_fits(n_rows, n_cols):
         raise ValueError(f"group_argmin: a {n_rows} x {n_cols} grid does not fit a block's "
                          "shared memory; use group_argmin_streamed")
+    if not _row_group_checked(row_group, n_groups):
+        check_row_group(row_group, n_groups)
     _in_range(band, 0, lut_c.shape[0], "band_of_block")
-    _in_range(row_group, 0, n_groups, "row_group", ascending=True)
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     lib = _load()
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"xs_{name}")(
-            lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
-            feats.data_ptr(), band.data_ptr(), out.data_ptr(),
-            n_blocks, block, n_rows, n_cols, n_groups, stream)
+    if streamed:
+        named = {"radii": (radii, torch.float32, (-(-n_rows // WGROUP), 2))}
+        if swept is not None:
+            named["swept"] = (swept, torch.int32, (n_blocks, 3))
+        _cuda_args(feats.device, named)
+        with torch.cuda.device(feats.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.xs_group_argmin_streamed(
+                lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
+                radii.data_ptr(), feats.data_ptr(), band.data_ptr(), out.data_ptr(),
+                None if swept is None else swept.data_ptr(), n_blocks, block, n_rows, n_cols,
+                n_groups, int(bool(prune)), stream)
+    else:
+        with torch.cuda.device(feats.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.xs_group_argmin(
+                lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
+                feats.data_ptr(), band.data_ptr(), out.data_ptr(),
+                n_blocks, block, n_rows, n_cols, n_groups, stream)
     _check(lib, rc, name)
     _launches[name] += 1
     return out
@@ -716,8 +995,15 @@ def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
     return n_bad, [tuple(pair) for pair in pairs]
 
 
-# K1's two forms are one function with one plain version
-_group_argmin_streamed_plain = _group_argmin_plain
+def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
+                                 n_groups, block=GROUP_BLOCK, radii=None, swept=None,
+                                 _prune=True, chunk_blocks=16):
+    """K1's streamed form has K1's plain version, unpruned: pruning leaves
+    every answer as it is. ``radii``, ``swept`` and ``_prune`` are the
+    kernel's and are ignored."""
+    return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
+                               block, chunk_blocks)
+
 
 KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_streamed,
            "slab_refine_fused": slab_refine_fused, "slab_refine": slab_refine,

@@ -61,7 +61,9 @@ from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.ops.bucketing import (
     _f32_sort_key_np,
     band_boundaries_f32,
+    band_of_value,
     bucket_by_band,
+    bucket_by_band_sorted,
     bucket_by_value,
     nearest_index_sorted,
 )
@@ -407,8 +409,14 @@ def _make_fused_invert_fn(tables, device, coarse=True):
 
     k1_ops = tuple(to_dev(a) for a in (lut_c, u_c, v_c, row_group))
     # K1 holds a grid that fits a block's shared memory whole, and streams
-    # one that does not (the full grid of the fused_exact mode)
-    k1_name = "group_argmin" if K.k1_staged_fits(*u_c.shape) else "group_argmin_streamed"
+    # one that does not (the full grid of the fused_exact mode) with the
+    # chunks' annuli of its lower bound; its row groups are checked here once
+    k1_kw = {"block": K.GROUP_BLOCK}
+    k1_name = "group_argmin"
+    if not K.k1_staged_fits(*u_c.shape):
+        k1_name = "group_argmin_streamed"
+        k1_kw["radii"] = to_dev(K.build_chunk_radii(u_c, v_c))
+    K.check_row_group(k1_ops[3], n_wgroups)
     direct = tuple(to_dev(a) for a in (lut_pad, u_pad, v_pad, w_pad))
     co_phir = to_dev(np.asarray(tables.co_phir, np.float32))
     has_cr = tables.has_cr
@@ -436,12 +444,6 @@ def _make_fused_invert_fn(tables, device, coarse=True):
 
     def run(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, dsig_co):
         n = inc.shape[0]
-        if boundary_keys is not None and inc.dtype == f32:
-            perm, band_of_block = bucket_by_value(inc, boundary_keys, n_inc, block)
-        else:
-            perm, band_of_block = bucket_by_band(nearest_index_sorted(inc_grid, inc), n_inc,
-                                                 block)
-        valid = perm >= 0
         mz = torch.abs(anc_im) if phi_180 else anc_im
         cols = [s0_co_db.to(f32), anc_re.to(f32) * 0.5, mz.to(f32) * 0.5,
                 (1.0 / dsig_co).to(f32).expand(n)]
@@ -450,11 +452,26 @@ def _make_fused_invert_fn(tables, device, coarse=True):
             cols += [s0_cr_db.to(f32) if has_cr else zero, dsig_cr.to(f32) if has_cr else zero,
                      zero, zero]
         pix = torch.stack(cols, dim=1)
+        by_value = boundary_keys is not None and inc.dtype == f32
+        if coarse and by_value:
+            perm, band_of_block = bucket_by_value(inc, boundary_keys, n_inc, block)
+        else:
+            band = band_of_value(inc, boundary_keys) if by_value \
+                else nearest_index_sorted(inc_grid, inc)
+            if coarse:
+                perm, band_of_block = bucket_by_band(band, n_inc, block)
+            else:
+                # fused_exact: each band's pixels in ascending order of their
+                # prior's radius |(ma/2, mz/2)|, so that a block's priors lie
+                # close and K1's streamed form sweeps few groups for it
+                perm, band_of_block = bucket_by_band_sorted(
+                    band, torch.hypot(pix[:, 1], pix[:, 2]), n_inc, block)
+        valid = perm >= 0
 
         # stage 1: coarse group argmin per incidence-band block (K1)
         feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
         gstar = getattr(K, k1_name)(*k1_ops, feats1, band_of_block, n_wgroups,
-                                    block=block).reshape(-1)
+                                    **k1_kw).reshape(-1)
 
         # stage 2: re-bucket by (band, group) for the slab refine
         perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
