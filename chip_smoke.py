@@ -37,13 +37,21 @@ it finishes; any failure exits non-zero:
    with their times, and fused against exact on the first 2**16 pixels;
 8. the experiment drivers of ``xsarsea_tpu_torch/scripts``: the slab
    sweep's three cost forms (K5) on a 2**23-pixel scene bucketed by the
-   port's stage 1, with their times and argmin flips against the direct
-   form, and the coarse pass's nine expanded-form variants (K6) at 2**23
-   pixels; each form and variant must have been launched by its driver and
-   be bit-equal to its plain version on the driver's arguments, and the
-   direct form (one pixel a thread, the loop K2 and K3 had before their
-   redesign) bit-equal to K3, whose time on the same arguments is printed
-   beside it;
+   port's stage 1, on both loops (the shared sweep K2 and K3 run, and the
+   one-pixel-a-thread loop they had before it), timed in turns, with the
+   argmin flips against the direct form; the coarse pass's nine
+   expanded-form variants (K6) at 2**23 pixels on both engines (CUDA cores;
+   tensor cores, after g4's one-off split), timed in turns; K2 and K3 at
+   every chunk height (``scripts/bench_slab_variants.py``, the same scene
+   with its crosspol sigma0), timed in turns. Each kernel must have been
+   launched by its script; each K5 form on both loops, each CUDA-core K6
+   variant, g4's split and K2/K3 at every height must be bit-equal to their
+   plain versions (and every height to 8's), the direct form on both loops
+   bit-equal to K3, whose time on the same arguments is printed beside it;
+   on the tensor cores every pixel whose group differs from the plain
+   version's (the same rounded or split products summed in f32) must be a
+   near-tie, its two rows within 2**-20 of ``max_e sum_k |g_k f_k|`` in
+   float64, and the number that differ is printed;
 9. scene preparation around the inversion, on a labelled scene of 2,048
    lines x 4,096 samples built in memory from ``--seed`` (incidence rising
    along the sample axis over 18-47 deg, NESZ rising with incidence with a
@@ -137,13 +145,15 @@ on; it prints neither of the two result lines below, which only a whole run
 earns.
 
 Each phase prints its seconds. The second-to-last line is a JSON object
-describing each kernel (each K5 form and K6 variant apart): its time and
-its plain version's on the path's arguments, its launches, and its bound,
-the least time the card could take for the same work (the larger of the
-bytes each input and output must move over 3.35 TB/s and the operations,
-counted from the kernel's code per entry for the path's real pixels, over
-67 TFLOP/s FP32, or 989 TFLOP/s for K6's bf16 products; NVIDIA's H100 SXM
-data sheet at 700 W). No single PyTorch call computes any of these
+describing each kernel (each K5 form and loop, K6 variant and engine, and
+K2/K3 chunk height apart): its time and its plain version's on the path's
+arguments, its launches, and its bound, the least time the card could take
+for the same work (the larger of the bytes each input and output must move
+over 3.35 TB/s and the operations, counted from the kernel's code per entry
+for the path's real pixels, over 67 TFLOP/s FP32, or 989 TFLOP/s for K6's
+bf16 products; NVIDIA's H100 SXM data sheet at 700 W). A tensor-core K6
+entry adds its flips against its plain version, the K its product needs
+and the K it issues, and the bound at the issued K. No single PyTorch call computes any of these
 functions (each is an argmin over a cost), so ``library_ms`` is null. The
 streamed K1's ``bound_ms`` is that of the cells it swept (its own count);
 its entry adds the full grid's bound, its time without pruning, the
@@ -186,8 +196,18 @@ KERNELS = {  # name: (source, TPU kernel it replaces, position of the feats argu
 UNFUSED_MODELS = ("gmf_cmod7", "sarwing_lut__fix_cr_2_1")  # phase 7: own incidence axes
 EXPERIMENTS = {  # phase 8: kernel family -> (source, TPU kernel it replaces)
     "slab_forms": ("xsarsea_tpu_torch/ops/csrc/slab_forms.cu", "scripts/bench_slab_forms.py:141"),
+    "slab_forms_thread": ("xsarsea_tpu_torch/ops/csrc/slab_forms.cu",
+                          "scripts/bench_slab_forms.py:141"),
     "group_argmin_variant": ("xsarsea_tpu_torch/ops/csrc/group_argmin_variants.cu",
                              "scripts/bench_kernel_variants.py:74"),
+    "group_argmin_variant_tc": ("xsarsea_tpu_torch/ops/csrc/group_argmin_variants_tc.cu",
+                                "scripts/bench_kernel_variants.py:74"),
+    "split_g4": ("xsarsea_tpu_torch/ops/csrc/group_argmin_variants_tc.cu",
+                 "scripts/bench_kernel_variants.py:74"),
+    "slab_refine": ("xsarsea_tpu_torch/ops/csrc/slab_refine.cu",
+                    "xsarsea_tpu/ops/pallas_inversion.py:835"),
+    "slab_refine_fused": ("xsarsea_tpu_torch/ops/csrc/slab_refine_fused.cu",
+                          "xsarsea_tpu/ops/pallas_inversion.py:1030"),
 }
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
@@ -199,7 +219,13 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 OPS_DIRECT = 10  # 3 sub, 4 mul, 2 add, compare (K1, K2, K3, K5 direct)
 OPS_FORM = {"direct": OPS_DIRECT, "prescaled": 9, "expanded_uv": 8}
 OPS_CROSSPOL = 8  # 2 sub, div, 3 mul, add, compare (K2, K4)
-OPS_DOT4 = 7  # K6: 4 mul, 3 add per entry, then one min or compare
+OPS_DOT4 = 7  # K6 on CUDA cores: 4 mul, 3 add per entry, then one min or compare
+# K6 on tensor cores: bf16 flops per entry and pixel that the product needs
+# (the 4 products, or highest's 36 of three-term splits, 2 flops each), then
+# one FP32 min or compare on the FP32 pipe; and the K it needs and issues
+# (K padded to mma.sync's 8, or to three k16 steps)
+OPS_TC = {"default": 8, "highest": 72}
+K_TC = {"default": (4, 8), "highest": (36, 48)}
 
 
 def log(msg):
@@ -638,28 +664,48 @@ def timed_once(torch, fn):
 
 
 def experiment_entry(torch, family, name, got, ref, ms, plain_ms, launches, bound_ms_by,
-                     phase):
-    """One K5 form's or K6 variant's line: exit unless it was launched by
-    its driver and is bit-equal to its plain version."""
+                     phase, flips=None):
+    """One experiment kernel's line: exit unless it was launched by its
+    script and is bit-equal to its plain version, or, given the tensor-core
+    gate's ``flips`` (``E.tc_flips``), unless every pixel that differs is a
+    near-tie."""
     if launches == 0:
-        raise SystemExit(f"{phase}: {name} was not launched by its driver")
-    if got.shape != ref.shape or not torch.equal(got, ref):
-        bad = int((got != ref).sum()) if got.shape == ref.shape else "all"
-        raise SystemExit(f"{phase}: {name} differs from its plain version on {bad} of "
-                         f"{ref.numel()} outputs")
+        raise SystemExit(f"{phase}: {name} was not launched by its script")
+    if got.shape != ref.shape:
+        raise SystemExit(f"{phase}: {name} has shape {tuple(got.shape)}, its plain version "
+                         f"{tuple(ref.shape)}")
+    if flips is None and not torch.equal(got, ref):
+        raise SystemExit(f"{phase}: {name} differs from its plain version on "
+                         f"{int((got != ref).sum())} of {ref.numel()} outputs")
+    if flips is not None and flips["not_near_tie"]:
+        raise SystemExit(f"{phase}: {name} differs from its plain version on "
+                         f"{flips['not_near_tie']} pixels that are not near-ties ({flips})")
     source, replaces = EXPERIMENTS[family]
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": float((got.double() - ref.double()).abs().max()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
-            "bound_by": bound_ms_by[1], "library_ms": None}
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches,
+             "max_abs_err": float((got.double() - ref.double()).abs().max()),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+             "bound_by": bound_ms_by[1], "library_ms": None}
+    if flips is not None:
+        entry["flips"] = flips["differ"]
+    return entry
+
+
+def share(bound_ms_by, ms):
+    """'<share> of its bound <ms> (<by>)' for a log line."""
+    return (f"{100 * bound_ms_by[0] / ms:.1f}% of its bound {bound_ms_by[0]:.4g} ms "
+            f"({bound_ms_by[1]})")
 
 
 def phase8(torch, K, report):
-    """The experiment drivers: K5's cost forms and K6's variants at 2**23 px."""
+    """The experiment scripts at 2**23 px: K5's cost forms on both loops, K6's
+    variants on both engines, K2/K3 at every chunk height."""
     from xsarsea_tpu_torch.ops import experiment_kernels as E
-    from xsarsea_tpu_torch.scripts import bench_kernel_variants, bench_slab_forms, cuda_ms
+    from xsarsea_tpu_torch.scripts import (bench_kernel_variants, bench_slab_forms,
+                                           bench_slab_variants, cuda_ms_turns)
 
-    # K5: the driver's run is the path, with launch counts
+    # K5: the script's run is the path, with launch counts; one plain version
+    # per form, which both loops compute
     E.reset_launch_counts()
     res = bench_slab_forms.main()
     torch.cuda.synchronize()
@@ -667,54 +713,127 @@ def phase8(torch, K, report):
     for form, r in res["forms"].items():
         args = r["args"]
         plain_ms, ref = timed_once(torch, lambda: E._slab_forms_plain(*args, chunk_blocks=128))
-        name = f"slab_forms:{form}"
         px = live_pixels(torch, args[5])
         cost_bound = bound(px * K.SLAB_ROWS * args[1].shape[2] * OPS_FORM[form],
                            nbytes(torch, *args[1:], r["out"]))
-        report[name] = experiment_entry(torch, "slab_forms", name, r["out"], ref, r["ms"],
-                                        plain_ms, launches.get(f"slab_forms/{form}", 0),
-                                        cost_bound, "phase 8")
-        line = (f"phase 8 {name}: bit-equal to its plain version on {ref.numel()} outputs "
-                f"({px} px); kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{cost_bound[0]:.4g} ms ({cost_bound[1]})")
-        if form == "direct":  # the pre-redesign loop against K3's sweep, same arguments
+        for family, run_ in (("slab_forms", r), ("slab_forms_thread", r["thread"])):
+            name = f"{family}:{form}"
+            report[name] = experiment_entry(torch, family, name, run_["out"], ref, run_["ms"],
+                                            plain_ms, launches.get(f"{family}/{form}", 0),
+                                            cost_bound, "phase 8")
+            log(f"phase 8 {name}: bit-equal to its plain version on {ref.numel()} outputs "
+                f"({px} px); kernel {run_['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"{share(cost_bound, run_['ms'])}")
+        log(f"phase 8 slab_forms:{form}: shared loop / thread loop = "
+            f"{r['ms'] / r['thread']['ms']:.3f} (timed in turns)")
+        if form == "direct":  # both loops against K3's sweep, same arguments
             k3_args = (*args[1:4], *args[5:])
             k3 = K.slab_refine(*k3_args)
             torch.cuda.synchronize()
-            if not torch.equal(k3, r["out"]):
+            if not (torch.equal(k3, r["out"]) and torch.equal(k3, r["thread"]["out"])):
                 raise SystemExit("phase 8: the direct form differs from slab_refine (K3)")
-            k3_ms = cuda_ms(lambda: K.slab_refine(*k3_args), bench_slab_forms.REPS)
-            line += (f"; bit-equal to slab_refine (K3), which takes {k3_ms:.3f} ms on the "
-                     f"same arguments (direct / K3 = {r['ms'] / k3_ms:.3f})")
-        log(line)
+            t = cuda_ms_turns({"k3": lambda: K.slab_refine(*k3_args),
+                               "shared": lambda: E.slab_forms(*args)},
+                              rounds=bench_slab_forms.REPS)
+            log(f"phase 8 slab_forms:direct: both loops bit-equal to slab_refine (K3), which "
+                f"takes {t['k3']:.3f} ms on the same arguments against the shared loop's "
+                f"{t['shared']:.3f} in turns (shared / K3 = {t['shared'] / t['k3']:.3f})")
     log(f"phase 8 slab-form flips: {json.dumps(res['flips'])}")
 
-    # K6: the nine variants at 2**23 px
+    # K6: the nine variants at 2**23 px on both engines, and the split of g4
     E.reset_launch_counts()
-    results = bench_kernel_variants.main()
+    kv = bench_kernel_variants.run()
     torch.cuda.synchronize()
     launches = E.launch_counts()
-    for r in results:
-        _, feats, band = r["args"]
+    g4 = kv["variants"][0]["args"][0]
+    for precision, split in kv["g4_split"].items():
+        plain_ms, ref = timed_once(torch, lambda: E._split_g4_plain(g4, precision))
+        name = f"split_g4:{precision}"
+        split_bound = bound(0, nbytes(torch, g4, split))
+        report[name] = experiment_entry(torch, "split_g4", name, split, ref,
+                                        kv["split_ms"][precision], plain_ms,
+                                        launches.get(f"split_g4/{precision}", 0), split_bound,
+                                        "phase 8")
+        log(f"phase 8 {name}: bit-equal to its plain version on {ref.numel()} words; kernel "
+            f"{kv['split_ms'][precision]:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"{share(split_bound, kv['split_ms'][precision])}")
+    for r in kv["variants"]:
+        args = r["args"]
+        _, feats, band = args
         kw = r["kwargs"]
         plain_ms, ref = timed_once(torch, lambda: E._group_argmin_variant_plain(
-            *r["args"], kw["block"], kw["reduction"], kw["precision"], chunk_px=16384))
+            *args, kw["block"], kw["reduction"], kw["precision"], chunk_px=16384))
         name = E.variant_name(**kw)
         px = live_pixels(torch, feats, 1)
         reads = 8 if kw["reduction"] == "none" else E.G4_TILE  # entries read per tile
         entries = E.G4_TILES * reads
         product = px * entries * OPS_DOT4
         g4_bytes = int(torch.unique(band).numel()) * E.G4_TILES * 4 * reads * 4
+        n_bytes = g4_bytes + nbytes(torch, feats, band, r["out"])
         variant_bound = bound(px * entries + (product if kw["precision"] == "highest" else 0),
-                              g4_bytes + nbytes(torch, feats, band, r["out"]),
-                              product if kw["precision"] == "default" else 0)
+                              n_bytes, product if kw["precision"] == "default" else 0)
         report[f"group_argmin_variant:{name}"] = experiment_entry(
             torch, "group_argmin_variant", f"group_argmin_variant:{name}", r["out"], ref,
             r["ms"], plain_ms, launches.get(f"group_argmin_variant/{name}", 0), variant_bound,
             "phase 8")
-        log(f"phase 8 {r['label']}: bit-equal to its plain version on {ref.numel()} px; "
-            f"kernel {r['ms']:.3f} ms ({r['mpx_s']:.1f} Mpx/s), plain {plain_ms:.3f} ms, "
-            f"bound {variant_bound[0]:.4g} ms ({variant_bound[1]})")
+        log(f"phase 8 {r['label']} cuda_cores: bit-equal to its plain version on "
+            f"{ref.numel()} px; kernel {r['ms']:.3f} ms ({r['mpx_s']:.1f} Mpx/s), plain "
+            f"{plain_ms:.3f} ms, {share(variant_bound, r['ms'])}")
+
+        # the tensor cores: the plain version sums the same (rounded or split)
+        # products in f32; at default that is the CUDA cores' plain version
+        tc = r["tensor_cores"]
+        if kw["precision"] == "default":
+            tc_plain_ms, tc_ref = plain_ms, ref
+        else:
+            tc_plain_ms, tc_ref = timed_once(torch, lambda: E._group_argmin_variant_plain(
+                *args, kw["block"], kw["reduction"], kw["precision"], chunk_px=16384,
+                engine="tensor_cores"))
+        flips = E.tc_flips(*args, tc["out"], tc_ref, **kw)
+        k_needed, k_issued = K_TC[kw["precision"]]
+        issued_entries = E.G4_TILES * (16 if kw["reduction"] == "none" else E.G4_TILE)
+        tc_bound = bound(px * entries, n_bytes, px * entries * OPS_TC[kw["precision"]])
+        issued = bound(px * entries, n_bytes, px * issued_entries * 2 * k_issued)
+        entry = experiment_entry(torch, "group_argmin_variant_tc",
+                                 f"group_argmin_variant_tc:{name}", tc["out"], tc_ref, tc["ms"],
+                                 tc_plain_ms, launches.get(f"group_argmin_variant_tc/{name}", 0),
+                                 tc_bound, "phase 8", flips=flips)
+        entry.update(k_needed=k_needed, k_issued=k_issued, bound_issued_ms=issued[0],
+                     flips_near_tie=flips["near_tie"], flips_worst_rel=flips["worst"])
+        report[entry["name"]] = entry
+        log(f"phase 8 {r['label']} tensor_cores: {flips['differ']} of {tc_ref.numel()} px "
+            f"differ from its plain version, all near-ties (worst |dJ| / S_p "
+            f"{flips['worst']:.3g}, gate {E.TIE_REL:.3g}); {r['differ']} differ from the CUDA "
+            f"cores; kernel {tc['ms']:.3f} ms ({tc['mpx_s']:.1f} Mpx/s), plain "
+            f"{tc_plain_ms:.3f} ms, {share(tc_bound, tc['ms'])}; at the issued K = {k_issued} "
+            f"(needed {k_needed}) the bound is {issued[0]:.4g} ms; tensor / CUDA cores = "
+            f"{tc['ms'] / r['ms']:.3f} (timed in turns)")
+
+    # K2 and K3 at every chunk height (scripts/bench_slab_variants.py)
+    K.reset_launch_counts()
+    sv = bench_slab_variants.main()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for kernel, runs in sv["kernels"].items():
+        args = sv["args"][kernel]
+        plain_ms, ref = timed_once(torch, lambda: plain_version(K, kernel)(
+            *args, **({"has_cr": True} if kernel == "slab_refine_fused" else {}),
+            block=K.SLAB_BLOCK, chunk_blocks=128))
+        for rows, run_ in runs.items():
+            name = f"{kernel}:chunk_rows={rows}"
+            if not run_["equal"]:
+                raise SystemExit(f"phase 8: {name} differs from chunk_rows=8")
+            counted = kernel if rows == 8 else name
+            height_bound = kernel_bound(torch, K, kernel, args, {}, run_["out"])
+            report[name] = experiment_entry(torch, kernel, name, run_["out"], ref, run_["ms"],
+                                            plain_ms, launches.get(counted, 0), height_bound,
+                                            "phase 8")
+            smem = K.slab_smem_bytes(args[0].shape[2], K.SLAB_ROWS, rows)
+            log(f"phase 8 {name}: bit-equal to chunk_rows=8 and to its plain version on "
+                f"{ref.numel()} outputs; kernel {run_['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"{share(height_bound, run_['ms'])}; {smem} B of shared memory a block")
+        for rows, why in sv["refused"][kernel].items():
+            log(f"phase 8 {kernel}:chunk_rows={rows}: refused by the wrapper: {why}")
 
 
 @contextlib.contextmanager

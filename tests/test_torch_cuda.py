@@ -322,6 +322,120 @@ def test_k6_variants_bit_equal_to_plain_versions(cuda):
     assert len(counts) == 24 and set(counts.values()) == {1}
 
 
+def _form_seam_args(cases, form, device):
+    """K5's arguments on the slab sweep's seam cases in ``form``: the seam
+    LUT and wind grids taken as the form's own operands (its prescaled LUT,
+    or -2 u/2, -2 v/2 and kr for expanded_uv), the features (s0, ma/2, mz/2)
+    with 1/dsig for the direct form and 1 for the others."""
+    lut_pad, u_half, v_half = K.build_direct_arrays(cases.lut, cases.u, cases.v)
+    ops = {"direct": (lut_pad, u_half, v_half, None),
+           "prescaled": (lut_pad, u_half, v_half, None),
+           "expanded_uv": (lut_pad, np.float32(-2) * u_half, np.float32(-2) * v_half,
+                           u_half * u_half + v_half * v_half)}[form]
+    feats = np.ascontiguousarray(cases.feats[:, :4])
+    if form != "direct":
+        feats[:, 3] = np.where(np.isnan(feats[:, 0]), np.nan, 1.0)
+    dev = lambda a: None if a is None else torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                                           device=device)
+    return (form, *(dev(a) for a in ops), dev(feats),
+            *(dev(a) for a in (cases.sband, cases.srow0, cases.vmask)))
+
+
+@pytest.mark.parametrize("n_phi", [37, 181])
+@pytest.mark.parametrize("form", E.FORMS)
+def test_k5_both_loops_bit_equal_on_the_sweeps_seams(cuda, form, n_phi):
+    """K5 on the shared sweep and on the thread loop against its plain
+    version on the slab sweep's seam cases (ties across warps, chunks and
+    float4s, padding groups, NaN and inf operands); the direct form keeps
+    their designed answers."""
+    cases = seam_cases(n_phi=n_phi)
+    args = _form_seam_args(cases, form, cuda)
+    E.reset_launch_counts()
+    ref = E._slab_forms_plain(*args)
+    for loop in E.LOOPS:
+        got = E.slab_forms(*args, loop=loop)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (form, loop, int((got != ref).sum()))
+    if form == "direct":
+        flat = got.reshape(-1).cpu().numpy()
+        assert all(flat[s] == e for s, e in cases.expected.items())
+    assert E.launch_counts() == {f"slab_forms/{form}": 1, f"slab_forms_thread/{form}": 1}
+
+
+@pytest.mark.parametrize("n_rows", [K.SLAB_ROWS, K.EXACT_SLAB_ROWS])
+def test_k2_k3_chunk_heights_bit_equal_on_the_sweeps_seams(cuda, n_rows):
+    """K2 and K3 at every chunk height equal chunk_rows=8, their plain
+    versions and the designed answers on the seam cases; each height counts
+    its own launches."""
+    cases = seam_cases(n_phi=181, n_rows=n_rows)
+    args2, args3 = cases.k2_args(cuda), cases.k3_args(cuda)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=n_rows)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=n_rows)
+    K.reset_launch_counts()
+    for rows in K.CHUNK_ROWS:
+        got2 = K.slab_refine_fused(*args2, n_rows=n_rows, chunk_rows=rows)
+        got3 = K.slab_refine(*args3, n_rows=n_rows, chunk_rows=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got2, ref2) and torch.equal(got3, ref3), rows
+        flat = got3.reshape(-1).cpu().numpy()
+        assert all(flat[s] == e for s, e in cases.expected.items()), rows
+    counts = K.launch_counts()
+    assert counts["slab_refine"] == counts["slab_refine_fused"] == 1
+    assert all(counts[f"{k}:chunk_rows={r}"] == 1 for r in (16, 24, 48)
+               for k in ("slab_refine", "slab_refine_fused"))
+    with pytest.raises(ValueError, match="chunk_rows"):
+        K.slab_refine(*args3, n_rows=n_rows, chunk_rows=32)
+
+
+def test_chunk_height_over_shared_memory_is_refused_with_its_bytes(cuda):
+    """A height whose stages do not fit a block's shared memory is refused
+    by the wrapper with the bytes it needs, never run at another height."""
+    rng = np.random.default_rng(8)
+    lut, _, _, u, v, _, _ = _operands(rng, n_inc=2, n_phi=420)
+    args = [torch.as_tensor(a, device=cuda) for a in K.build_direct_arrays(lut, u, v)]
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    feats = torch.as_tensor(np.tile(np.float32([-20, 1, 1, 10]), (128, 1)), device=cuda)
+    base = K.slab_refine(*args, feats, one * 0, one * 16, one)
+    assert torch.equal(K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=16), base)
+    need = K.slab_smem_bytes(420, K.SLAB_ROWS, 48)
+    assert need > 227 * 1024
+    with pytest.raises(ValueError, match=f"needs {need} bytes"):
+        K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=48)
+
+
+def test_k6_tensor_cores_flip_only_near_ties(cuda):
+    """K6 on the tensor cores in every (block, reduction, precision): each
+    pixel whose group differs from its plain version's is a near-tie, a NaN
+    pixel gives 31; its g4 split equals the plain split bit for bit."""
+    rng = np.random.default_rng(6)
+    g4 = torch.as_tensor(rng.normal(size=(7, 4, 4, 2048)).astype(np.float32), device=cuda)
+    E.reset_launch_counts()
+    splits = {p: E.split_g4(g4, p) for p in E.PRECISIONS}
+    for p, split in splits.items():
+        assert torch.equal(split, E._split_g4_plain(g4, p)), p
+    for block in E.VARIANT_BLOCKS:
+        feats = rng.normal(size=(6, 4, block)).astype(np.float32)
+        feats[1, 2, 5] = np.nan
+        args = (g4, torch.as_tensor(feats, device=cuda),
+                torch.as_tensor(np.sort(rng.integers(0, 7, 6)), device=cuda))
+        for reduction in E.REDUCTIONS:
+            for precision in E.PRECISIONS:
+                kw = dict(block=block, reduction=reduction, precision=precision)
+                got = E.group_argmin_variant(*args, **kw, engine="tensor_cores",
+                                             g4_split=splits[precision])
+                ref = E._group_argmin_variant_plain(*args, block, reduction, precision,
+                                                    engine="tensor_cores")
+                torch.cuda.synchronize()
+                flips = E.tc_flips(*args, got, ref, **kw)
+                assert flips["not_near_tie"] == 0, (kw, flips)
+                assert flips["differ"] <= 0.01 * got.numel(), (kw, flips)
+                assert got[1, 0, 5] == 31
+    counts = E.launch_counts()
+    assert counts == {"split_g4/highest": 1, "split_g4/default": 1,
+                      **{f"group_argmin_variant_tc/{E.variant_name(b, r, p)}": 1
+                         for b in E.VARIANT_BLOCKS for r in E.REDUCTIONS for p in E.PRECISIONS}}
+
+
 def test_unfused_tail_equals_exact_on_card(cuda):
     """A crosspol LUT on its own incidence axis: K1, K3 and K4 on the card
     give the exact path's winds and the CPU run's winners."""

@@ -1,6 +1,7 @@
 """K5, the slab sweep in three cost forms (plain PyTorch version, on the
 CPU), against the JAX package's ``run_form`` (``scripts/bench_slab_forms.py``)
-run in TPU interpret mode, and its driver
+run in TPU interpret mode, its two loops (the shared sweep and the
+one-pixel-a-thread baseline, one plain version), and its script
 ``xsarsea_tpu_torch.scripts.bench_slab_forms`` end to end on small tables.
 
 The JAX script is loaded from its file; it imports its benchmark helpers
@@ -186,3 +187,40 @@ def test_bench_slab_forms_needs_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_slab_forms.main(n=2 ** 10)
+
+
+@pytest.mark.parametrize("form", E.FORMS)
+def test_both_loops_take_the_plain_version_on_the_cpu(form):
+    """The shared sweep and the thread loop compute one function: on a CPU
+    tensor both give the plain version's bits, which run_form's are."""
+    c = _case(4)
+    ops = [None if a is None else torch.as_tensor(a)
+           for a in E.build_form_arrays(form, c["lut"], c["u"], c["v"], 0.1)]
+    rest = [torch.as_tensor(c["feats"][form])] + [torch.as_tensor(c[k]) for k in
+                                                  ("sband", "srow0", "vmask")]
+    ref = E._slab_forms_plain(form, *ops, *rest)
+    for loop in E.LOOPS:
+        assert torch.equal(E.slab_forms(form, *ops, *rest, loop=loop), ref)
+    assert E.launch_counts() == {}
+
+
+def test_slab_forms_refuses_an_unknown_loop():
+    one = torch.ones(1, dtype=torch.int32)
+    ops = (torch.empty(1, 1, 1), torch.empty(1, 1), torch.empty(1, 1))
+    with pytest.raises(ValueError, match="unknown slab loop"):
+        E.slab_forms("direct", *ops, None, torch.empty((128, 4)), one, one, one, loop="warp")
+    with pytest.raises(ValueError, match="unknown slab loop"):
+        E.slab_forms("direct", *ops, None, torch.empty((128, 4)), one, one, one, loop=None)
+
+
+def test_bench_slab_forms_main_reports_both_loops(capsys):
+    res = bench_slab_forms.main(n=2 ** 11, device="cpu", inc_step=1.0, wspd_step=0.5,
+                                phi_step=5.0)
+    out = capsys.readouterr().out
+    for form in E.FORMS:
+        for loop in E.LOOPS:
+            assert f"slab form={form:12s} loop={loop:6s}" in out
+        assert f"slab form={form:12s} loops bit-equal: True" in out
+        r = res["forms"][form]
+        assert r["thread"]["ms"] is None and torch.equal(r["thread"]["out"], r["out"])
+    assert E.launch_counts() == {}

@@ -1,5 +1,7 @@
-// K6: the coarse group-argmin pass in expanded (matmul) form, in the
-// variants scripts/bench_kernel_variants.py measures.
+// K6 on CUDA cores: the coarse group-argmin pass in expanded (matmul) form,
+// in the variants scripts/bench_kernel_variants.py measures; the engine
+// "cuda_cores" of ops/experiment_kernels.py, the baseline of the tensor-core
+// engine (group_argmin_variants_tc.cu).
 //
 // Replaces scripts/bench_kernel_variants.py:make_variant.run (body kernel),
 // the TPU's K1 as an MXU product: per pixel p of a block sharing one band,
@@ -19,11 +21,11 @@
 //     entries of a tile are never read, so this kernel does not compute them.
 //   * block: 256, 512 or 1024 pixels per CUDA block (the thread count).
 //
-// One thread per pixel on CUDA cores (a tensor-core version belongs to the
-// redesign of K1). Each tile of g4[band] is staged in shared memory as one
-// float4 per entry (32 KB), all threads then read the same entry at once (a
-// broadcast). A group's minimum is PTX min.NaN.f32, NaN propagating as the
-// TPU's jnp.min; across the 32 rows a strict '<' keeps the first minimum.
+// One thread per pixel, the product on the FP32 pipe, bit-equal to its plain
+// version. Each tile of g4[band] is staged in shared memory as one float4 per
+// entry (32 KB), all threads then read the same entry at once (a broadcast).
+// A group's minimum is PTX min.NaN.f32, NaN propagating as the TPU's jnp.min;
+// across the 32 rows a strict '<' keeps the first minimum.
 //
 // Bound on the H100: FP32 issue for the reducing variants. Per pixel
 // 8,192 entries x (4 multiplies + 3 adds + 1 min) FP32 operations; the

@@ -21,6 +21,10 @@ __device__ __forceinline__ float copol_cost(float l, float u_half, float v_half,
   return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
 }
 
+// The slab sweep's cost forms: K2 and K3 take the direct one; K5 prices the
+// other two (scripts/bench_slab_forms.py).
+enum Form : int { kDirect = 0, kPrescaled = 1, kExpandedUV = 2 };
+
 // The two rewrites of that cost that scripts/bench_slab_forms.py measures
 // (K5), with the operands their builders give:
 //   prescaled:   (l' - s0')^2 + (u/2 - ma/2)^2 + (v/2 - mz/2)^2, where
@@ -53,8 +57,9 @@ struct SlabArgmin {
 };
 
 // Direct-form copol argmin over an n_rows x n_phi LUT slab, one pixel per
-// thread: K5's direct form, the baseline of its cost-form experiment (K2 and
-// K3 sweep with xs::slab::sweep below). The slab sits in shared memory;
+// thread: the loop K2 and K3 ran before their redesign, kept as the baseline
+// of K5's experiment (slab_forms.cu, loop "thread"; everything else sweeps
+// with xs::slab::sweep below). The slab sits in shared memory;
 // u_b/v_b point at the slab's first row of the halved wind-component grids in
 // device memory. One thread sweeps its pixel in row-major (wspd-major,
 // phi-minor) order with a strict '<': the first minimum wins, numpy's rule.
@@ -100,13 +105,13 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-// The slab sweep of K2 and K3 on Hopper.
+// The slab sweep of K2, K3 and K5 on Hopper.
 //
 // A CUDA block holds one 128-pixel (band, group) bucket block and kWarps = 4
 // warps. Lane l of every warp owns the pixels l, l + 32, l + 64 and l + 96
 // (P = 4 a thread, one per 32-pixel group), and warp w sweeps the slab rows
-// r = w (mod 4). So each (l, u, v) triple read from shared memory (one
-// broadcast for the whole warp) feeds four cost evaluations, a thread runs
+// r = w (mod 4). So each entry's operands read from shared memory (one
+// broadcast for the whole warp) feed four cost evaluations, a thread runs
 // four independent compare chains, and each pixel keeps four running minima,
 // one per warp; they merge at the end by (cost, flat index), which is
 // numpy's first minimum over the whole slab. A running minimum is the
@@ -117,12 +122,25 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // chain's compare and index select; after the sweep each chain rescans its
 // winning four for the first entry that holds the minimum.
 //
-// The slab streams through shared memory kChunkRows rows at a time, l, u and
-// v each, double-buffered with 4-byte cp.async (the rows of an odd-width LUT
-// are not 16-byte aligned in device memory). Rows are stored with a stride
-// rounded up to 4 floats, so the sweep reads float4s; it stops at n_phi and
-// never evaluates the stride's padding. 2 x 3 x 8 rows x 184 x 4 B = 35 KB at
-// the production LUT (181 phi), what one 48-row slab took before.
+// The sweep is a template on the cost form (Form: K2 and K3 take kDirect,
+// K5 all three) and on the chunk height kChunk, the slab rows a
+// shared-memory stage holds (8, the default, or 16, 24, 48: multiples of
+// kWarps, so every warp keeps its rows r = w mod 4 in every chunk). The form
+// is chosen with if constexpr and plain inline calls: each instantiation is
+// the loop written out for its cost (a cost passed as a lambda made the
+// direct sweep ~8% slower in K5's old loop and ~4% in K2). The chunk height
+// changes the trip counts only, never the per-entry operations, so every
+// height gives the same bits.
+//
+// The slab streams through shared memory kChunk rows at a time, one plane
+// per operand (l, u, v, and kr for expanded_uv), double-buffered with 4-byte
+// cp.async (the rows of an odd-width LUT are not 16-byte aligned in device
+// memory); a slab of one chunk takes one stage. Rows are stored with a
+// stride rounded up to 4 floats, so the sweep reads float4s; it stops at
+// n_phi and never evaluates the stride's padding. At the production LUT
+// (181 phi) and 8 rows: 2 x 3 x 8 x 184 x 4 B = 35 KB (47 KB with kr), what
+// one 48-row slab took before; at 48 rows a 48-row slab is one stage of
+// 106 KB.
 //
 // A 32-pixel group whose s0 are all NaN (the padding slots at a bucket's end,
 // or pixels with no copol sigma0) is not swept: a NaN s0 makes every cost
@@ -135,14 +153,21 @@ constexpr int kPixels = 128;              // pixels per block: SLAB_BLOCK
 constexpr int kWarps = 4;                 // row chains per pixel
 constexpr int kThreads = 32 * kWarps;     // == kPixels: thread t merges pixel t
 constexpr int kGroups = kPixels / 32;     // pixels per thread
-constexpr int kChunkRows = 8;             // slab rows per shared-memory stage
+constexpr int kChunkRows = 8;             // default slab rows per shared-memory stage
 
 __host__ __device__ constexpr int row_stride(int n_phi) { return (n_phi + 3) & ~3; }
 
-// Dynamic shared memory of a block: two stages of l, u, v, reused at the end
-// for the per-warp partial minima.
-inline size_t smem_bytes(int n_phi) {
-  const size_t stages = 2 * 3 * static_cast<size_t>(kChunkRows) * row_stride(n_phi);
+// Operand planes a stage holds: l, u, v, and kr for expanded_uv.
+template <Form F>
+__host__ __device__ constexpr int planes() { return F == kExpandedUV ? 4 : 3; }
+
+// Dynamic shared memory of a block: the stages (two, or one for a slab of a
+// single chunk) of every plane, reused at the end for the per-warp partial
+// minima.
+template <Form F = kDirect, int kChunk = kChunkRows>
+inline size_t smem_bytes(int n_phi, int n_rows) {
+  const size_t n_stages = n_rows > kChunk ? 2 : 1;
+  const size_t stages = n_stages * planes<F>() * static_cast<size_t>(kChunk) * row_stride(n_phi);
   const size_t partials = 2 * static_cast<size_t>(kWarps) * kPixels;
   return (stages > partials ? stages : partials) * sizeof(float);
 }
@@ -152,27 +177,32 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// A block's slab in device memory: the first of its n_rows rows of the LUT
-// band and of the halved wind-component grids, n_phi floats a row.
+// A block's slab in device memory: the first of its n_rows rows of each
+// operand, n_phi floats a row. lut, u and v are l, u/2 and v/2 for the direct
+// form; prescaled takes l * inv_dsig for lut; expanded_uv takes l * inv_dsig,
+// -2 u/2 and -2 v/2, and kr = (u/2)^2 + (v/2)^2 (nullptr for the others).
 struct Slab {
   const float* __restrict__ lut;
   const float* __restrict__ u;
   const float* __restrict__ v;
   int n_rows;
   int n_phi;
+  const float* __restrict__ kr = nullptr;
 };
 
-// Issue the copies of slab rows [row0, row0 + rows) of the three operands into
-// one stage (l, u, v planes of kChunkRows x ld floats each), as one group.
+// Issue the copies of slab rows [row0, row0 + rows) of every operand into
+// one stage (planes of kChunk x ld floats each), as one group.
+template <Form F, int kChunk>
 __device__ __forceinline__ void stage_rows(float* stage, const Slab& s, int row0, int rows,
                                            int ld) {
-  const int plane = kChunkRows * ld;
+  const int plane = kChunk * ld;
   for (int rr = 0; rr < rows; ++rr) {
     const size_t src = static_cast<size_t>(row0 + rr) * s.n_phi;
     for (int c = threadIdx.x; c < s.n_phi; c += kThreads) {
       cp_async4(stage + rr * ld + c, s.lut + src + c);
       cp_async4(stage + plane + rr * ld + c, s.u + src + c);
       cp_async4(stage + 2 * plane + rr * ld + c, s.v + src + c);
+      if constexpr (F == kExpandedUV) cp_async4(stage + 3 * plane + rr * ld + c, s.kr + src + c);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -182,14 +212,22 @@ __device__ __forceinline__ void stage_rows(float* stage, const Slab& s, int row0
 // a slab-local flat index r * n_phi + c, -1 while no cost has been finite:
 // during the sweep the first entry of the float4 (or the tail entry) where
 // the chain's minimum was first reached, after resolve() the entry itself.
-template <int G>
+// inv is read by the direct form only (the others take 1 there).
+template <int G, Form F = kDirect>
 struct Chains {
   float s0[G], ma[G], mz[G], inv[G];
   float best[G];
   int idx[G];
 
-  __device__ __forceinline__ float cost(int k, float l, float u, float v) const {
-    return copol_cost(l, u, v, s0[k], ma[k], mz[k], inv[k]);
+  // The form's cost of one entry; kr is read by expanded_uv only.
+  __device__ __forceinline__ float cost(int k, float l, float u, float v, float kr) const {
+    if constexpr (F == kDirect) {
+      return copol_cost(l, u, v, s0[k], ma[k], mz[k], inv[k]);
+    } else if constexpr (F == kPrescaled) {
+      return prescaled_cost(l, u, v, s0[k], ma[k], mz[k]);
+    } else {
+      return expanded_uv_cost(l, kr, u, v, s0[k], ma[k], mz[k]);
+    }
   }
 
   // The strict '<' keeps the chain's first minimum; NaN propagates into best.
@@ -201,18 +239,18 @@ struct Chains {
 
   // Entries e..e+3 of one row: their NaN-propagating minimum against the
   // chain's, one compare and one select for four entries.
-  __device__ __forceinline__ void step4(float4 l, float4 u, float4 v, int e) {
+  __device__ __forceinline__ void step4(float4 l, float4 u, float4 v, float4 kr, int e) {
 #pragma unroll
     for (int k = 0; k < G; ++k) {
-      const float j01 = min_nan(cost(k, l.x, u.x, v.x), cost(k, l.y, u.y, v.y));
-      const float j23 = min_nan(cost(k, l.z, u.z, v.z), cost(k, l.w, u.w, v.w));
+      const float j01 = min_nan(cost(k, l.x, u.x, v.x, kr.x), cost(k, l.y, u.y, v.y, kr.y));
+      const float j23 = min_nan(cost(k, l.z, u.z, v.z, kr.z), cost(k, l.w, u.w, v.w, kr.w));
       keep(k, min_nan(j01, j23), e);
     }
   }
 
-  __device__ __forceinline__ void step(float l, float u, float v, int e) {
+  __device__ __forceinline__ void step(float l, float u, float v, float kr, int e) {
 #pragma unroll
-    for (int k = 0; k < G; ++k) keep(k, cost(k, l, u, v), e);
+    for (int k = 0; k < G; ++k) keep(k, cost(k, l, u, v, kr), e);
   }
 
   // The first entry at or after idx, within its four, whose cost is the
@@ -228,7 +266,8 @@ struct Chains {
       const int end = min(c0 + 4, s.n_phi);
       for (int c = c0; c < end; ++c) {
         const size_t i = static_cast<size_t>(row) * s.n_phi + c;
-        if (cost(k, s.lut[i], s.u[i], s.v[i]) == best[k]) {
+        const float kr = F == kExpandedUV ? s.kr[i] : 0.0f;
+        if (cost(k, s.lut[i], s.u[i], s.v[i], kr) == best[k]) {
           idx[k] = row * s.n_phi + c;
           break;
         }
@@ -241,13 +280,14 @@ struct Chains {
 // each warp's partial (minimum, index) per pixel in smem: part_best[w *
 // kPixels + p], part_idx likewise (p = 32 * group + lane). Every thread of
 // the block calls it with the same G.
-template <int G>
+template <int G, Form F, int kChunk>
 __device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict__ feats_b,
                              int feat_stride, unsigned live) {
+  static_assert(kChunk % kWarps == 0, "every warp keeps its rows r = w mod 4 in every chunk");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int grp[G];  // the live groups, in order
-  Chains<G> ch;
+  Chains<G, F> ch;
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     grp[k] = __ffs(live) - 1;
@@ -256,42 +296,46 @@ __device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict
     ch.s0[k] = f[0];
     ch.ma[k] = f[1];
     ch.mz[k] = f[2];
-    ch.inv[k] = f[3];
+    ch.inv[k] = F == kDirect ? f[3] : 1.0f;
     ch.best[k] = CUDART_INF_F;
     ch.idx[k] = -1;
   }
 
   const int n_phi = s.n_phi;
   const int ld = row_stride(n_phi);
-  const int plane = kChunkRows * ld;
-  const int n_chunks = (s.n_rows + kChunkRows - 1) / kChunkRows;
-  stage_rows(smem, s, 0, min(kChunkRows, s.n_rows), ld);
+  const int plane = kChunk * ld;
+  constexpr int kStage = planes<F>();  // planes a stage holds
+  const int n_chunks = (s.n_rows + kChunk - 1) / kChunk;
+  stage_rows<F, kChunk>(smem, s, 0, min(kChunk, s.n_rows), ld);
   for (int k = 0; k < n_chunks; ++k) {
-    const int row0 = k * kChunkRows;
+    const int row0 = k * kChunk;
     if (k + 1 < n_chunks) {  // prefetch the next chunk into the other stage
-      const int next = row0 + kChunkRows;
-      stage_rows(smem + ((k + 1) & 1) * 3 * plane, s, next, min(kChunkRows, s.n_rows - next),
-                 ld);
+      const int next = row0 + kChunk;
+      stage_rows<F, kChunk>(smem + ((k + 1) & 1) * kStage * plane, s, next,
+                            min(kChunk, s.n_rows - next), ld);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
-    const float* stage = smem + (k & 1) * 3 * plane;
-    const int rows = min(kChunkRows, s.n_rows - row0);
+    const float* stage = smem + (k & 1) * kStage * plane;
+    const int rows = min(kChunk, s.n_rows - row0);
     for (int rr = warp; rr < rows; rr += kWarps) {
       const float* L = stage + rr * ld;
       const float* U = L + plane;
       const float* V = U + plane;
+      const float* R = V + plane;  // kr: read by expanded_uv only
       int e = (row0 + rr) * n_phi;
       int c = 0;
       for (; c + 4 <= n_phi; c += 4, e += 4) {
         const float4 l4 = *reinterpret_cast<const float4*>(L + c);
         const float4 u4 = *reinterpret_cast<const float4*>(U + c);
         const float4 v4 = *reinterpret_cast<const float4*>(V + c);
-        ch.step4(l4, u4, v4, e);
+        float4 r4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if constexpr (F == kExpandedUV) r4 = *reinterpret_cast<const float4*>(R + c);
+        ch.step4(l4, u4, v4, r4, e);
       }
-      for (; c < n_phi; ++c, ++e) ch.step(L[c], U[c], V[c], e);
+      for (; c < n_phi; ++c, ++e) ch.step(L[c], U[c], V[c], F == kExpandedUV ? R[c] : 0.0f, e);
     }
     __syncthreads();  // the stage is refilled next, or reused for the partials
   }
@@ -307,10 +351,13 @@ __device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict
   }
 }
 
-// The first minimum of pixel threadIdx.x of the block over its slab. feats_b
-// points at the block's first pixel's features (s0, ma/2, mz/2, 1/dsig, then
-// feat_stride - 4 others). Needs kThreads threads and smem_bytes(s.n_phi) of
-// 16-byte aligned dynamic shared memory.
+// The first minimum of pixel threadIdx.x of the block over its slab in cost
+// form F. feats_b points at the block's first pixel's features (s0, ma/2,
+// mz/2, 1/dsig for the direct form; s0 * inv_dsig, ma/2, mz/2, 1 for the
+// other two; then feat_stride - 4 others). Needs kThreads threads and
+// smem_bytes<F, kChunk>(s.n_phi, s.n_rows) of 16-byte aligned dynamic
+// shared memory.
+template <Form F = kDirect, int kChunk = kChunkRows>
 __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
                                             const float* __restrict__ feats_b, int feat_stride) {
   const int lane = threadIdx.x & 31;
@@ -322,10 +369,10 @@ __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
     live |= static_cast<unsigned>(__any_sync(0xffffffffu, s0 == s0)) << g;
   }
   switch (__popc(live)) {
-    case 1: sweep_groups<1>(smem, s, feats_b, feat_stride, live); break;
-    case 2: sweep_groups<2>(smem, s, feats_b, feat_stride, live); break;
-    case 3: sweep_groups<3>(smem, s, feats_b, feat_stride, live); break;
-    case 4: sweep_groups<4>(smem, s, feats_b, feat_stride, live); break;
+    case 1: sweep_groups<1, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
+    case 2: sweep_groups<2, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
+    case 3: sweep_groups<3, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
+    case 4: sweep_groups<4, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
     default: break;  // no live group: nothing to sweep
   }
   __syncthreads();

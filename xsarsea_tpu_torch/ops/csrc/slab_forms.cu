@@ -3,41 +3,51 @@
 // Replaces scripts/bench_slab_forms.py:run_form (body _form_kernel), the
 // experiment that asks which cost form the slab sweep should use:
 //   * direct:      ((l - s0) * inv_dsig)^2 + (u/2 - ma/2)^2 + (v/2 - mz/2)^2,
-//                  K3's cost, in the one-pixel-a-thread loop K2 and K3 ran
-//                  before their sweep was redesigned (xs::copol_slab_argmin),
-//                  kept as the experiment's baseline;
+//                  K3's cost (xs::copol_cost);
 //   * prescaled:   the LUT and s0 scaled by inv_dsig beforehand, one multiply
 //                  fewer per entry (xs::prescaled_cost);
 //   * expanded_uv: the wind terms expanded against a per-entry row operand
-//                  kr = (u/2)^2 + (v/2)^2, three multiplies fewer than direct
-//                  (xs::expanded_uv_cost); near-ties can flip.
+//                  kr = (u/2)^2 + (v/2)^2, two FP32 operations fewer than
+//                  direct but a fourth operand (xs::expanded_uv_cost); near-ties
+//                  can flip.
 // The TPU kernel's pack-2 lanes, 128-lane padding and rows_per_iter were
 // Mosaic scheduling: the flat index into the (W, P) grid does not depend on
-// them, so the operands here are the port's unpacked K3 layout.
+// them, so the operands here are the port's unpacked K3 layout. Either loop
+// writes K3's index with K3's sentinels: 2^30 for a NaN cost anywhere in the
+// slab, no_hit for no finite cost, 0 in all-padding blocks (vmask == 0).
 //
-// K3's layout before its redesign: one CUDA block per 128-pixel (band, group)
-// bucket block, one thread per pixel. The block's 48-row x all-phi LUT slab
-// (and, for expanded_uv, the same rows of kr) is staged in shared memory;
-// u/v (or u2/v2) come through the read-only cache. Each thread sweeps its
-// pixel in row-major order with a strict '<' (xs::copol_slab_argmin's loop)
-// and writes K3's index with K3's sentinels: 2^30 for a NaN cost anywhere in
-// the slab, no_hit for no finite cost, 0 in all-padding blocks (vmask == 0).
-//
-// Bound on the H100, counted: FP32 operations. Per pixel 48 x 181 = 8,688
-// entries x (9, 8, 7) FP32 operations (direct, prescaled, expanded_uv) plus a
-// compare and the NaN test; device-memory traffic is 16 B/px in and 4 B/px
-// out. Measured, the sweep reaches ~12% of that bound and prescaled's
-// multiply fewer per entry gains nothing: the loop issues ~29 instructions per
-// entry and pixel (two loads with their 64-bit address arithmetic, the
-// compare, three selects and the NaN test around the 9 FP32 operations), and
-// those bound it. expanded_uv's second staged operand doubles the shared
-// memory a block holds (70 KB at the production LUT), so half as many blocks
-// fit on an SM as for the other two forms.
+// Two loops, so that the experiment prices the forms on the sweep the path
+// runs and keeps its "before":
+//   * shared (the default): xs::slab::sweep<form, 8>, the sweep of K2 and K3
+//     (inversion_common.cuh): 128 threads a 128-pixel block, four pixels a
+//     lane, one row chain a warp, the slab's planes (l, u, v, and kr for
+//     expanded_uv) streamed through shared memory 8 rows a stage by
+//     cp.async and read as float4s, the NaN-propagating minimum, the (cost,
+//     flat index) merge. Its direct form is K3, bit for bit. Bound on the
+//     H100: FP32 issue, as K3 (slab_refine.cu): 11.25 SASS instructions per
+//     entry and pixel for the direct form, of which the cost is 9 FP32
+//     operations; prescaled drops a multiply, expanded_uv a subtraction and
+//     a multiply but adds a shared load (a fourth float4 per four entries)
+//     and a fourth plane to every stage (47 KB a block at 181 phi, 35 KB for
+//     the others).
+//   * thread: the one-pixel-a-thread loop K2 and K3 ran before their sweep
+//     was redesigned (xs::copol_slab_argmin's loop, written out per form): a
+//     block per bucket block, one thread per pixel, the 48-row slab (and
+//     kr) staged whole in shared memory, u/v through the read-only cache.
+//     ~29 instructions per entry and pixel (two loads with their 64-bit
+//     address arithmetic, the compare, three selects and the NaN test
+//     around the FP32 operations) bound it, at ~12% of its FP32 bound, and
+//     its prescaled form's multiply fewer gained nothing there.
+// Device-memory traffic is 16 B/px in and 4 B/px out for both.
 #include "inversion_common.cuh"
 
 namespace {
 
-enum Form { kDirect = 0, kPrescaled = 1, kExpandedUV = 2 };
+using xs::kDirect;
+using xs::kExpandedUV;
+using xs::kPrescaled;
+using xs::slab::kPixels;
+using xs::slab::kThreads;
 
 // The sweep of xs::copol_slab_argmin with the cost of a rewritten form: the
 // same loop written out per form. (Through a template taking the cost as a
@@ -109,6 +119,50 @@ __global__ void slab_forms_kernel(const float* __restrict__ lut, const float* __
   out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
 }
 
+// The shared loop: K3's kernel on the sweep in form F. feats rows (s0, ma/2,
+// mz/2, 1/dsig) for the direct form, (s0 * inv_dsig, ma/2, mz/2, 1) for the
+// other two.
+template <xs::Form F>
+__global__ void __launch_bounds__(kThreads)
+    slab_forms_shared_kernel(const float* __restrict__ lut, const float* __restrict__ u,
+                             const float* __restrict__ v, const float* __restrict__ kr,
+                             const float* __restrict__ feats, const int* __restrict__ sband,
+                             const int* __restrict__ srow0, const int* __restrict__ vmask,
+                             int* __restrict__ out, int wp_rows, int n_phi, int n_rows,
+                             int no_hit) {
+  extern __shared__ __align__(16) float sweep_smem[];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  int* out_b = out + static_cast<size_t>(b) * kPixels;
+  if (vmask[b] == 0) {
+    out_b[t] = 0;
+    return;
+  }
+  const int r0 = srow0[b];
+  const size_t row0 = static_cast<size_t>(r0) * n_phi;
+  const xs::slab::Slab slab{lut + static_cast<size_t>(sband[b]) * wp_rows * n_phi + row0,
+                            u + row0, v + row0, n_rows, n_phi,
+                            F == kExpandedUV ? kr + row0 : nullptr};
+  const xs::SlabArgmin m =
+      xs::slab::sweep<F>(sweep_smem, slab, feats + static_cast<size_t>(b) * kPixels * 4, 4);
+  out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
+}
+
+template <int kForm>
+int launch_shared(const float* lut, const float* u, const float* v, const float* kr,
+                  const float* feats, const int* sband, const int* srow0, const int* vmask,
+                  int* out, int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
+                  int no_hit, cudaStream_t stream) {
+  constexpr xs::Form F = static_cast<xs::Form>(kForm);
+  if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = xs::slab::smem_bytes<F>(n_phi, n_rows);
+  cudaError_t err = xs::allow_smem(slab_forms_shared_kernel<F>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  slab_forms_shared_kernel<F><<<n_blocks, kThreads, smem, stream>>>(
+      lut, u, v, kr, feats, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kForm>
 int launch(const float* lut, const float* u, const float* v, const float* kr,
            const float* feats, const int* sband, const int* srow0, const int* vmask, int* out,
@@ -123,25 +177,43 @@ int launch(const float* lut, const float* u, const float* v, const float* kr,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kForm>
+int launch_loop(int loop, const float* lut, const float* u, const float* v, const float* kr,
+                const float* feats, const int* sband, const int* srow0, const int* vmask,
+                int* out, int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
+                int no_hit, cudaStream_t stream) {
+  switch (loop) {
+    case 0:
+      return launch_shared<kForm>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks,
+                                  block, wp_rows, n_phi, n_rows, no_hit, stream);
+    case 1:
+      return launch<kForm>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
+                           wp_rows, n_phi, n_rows, no_hit, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-extern "C" int xs_slab_forms(int form, const float* lut, const float* u, const float* v,
-                             const float* kr, const float* feats, const int* sband,
-                             const int* srow0, const int* vmask, int* out, int n_blocks,
-                             int block, int wp_rows, int n_phi, int n_rows, int no_hit,
-                             void* stream) {
+// loop 0: the shared sweep; 1: the one-pixel-a-thread baseline.
+extern "C" int xs_slab_forms(int form, int loop, const float* lut, const float* u,
+                             const float* v, const float* kr, const float* feats,
+                             const int* sband, const int* srow0, const int* vmask, int* out,
+                             int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
+                             int no_hit, void* stream) {
   if (n_blocks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {
     case kDirect:
-      return launch<kDirect>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
-                             wp_rows, n_phi, n_rows, no_hit, s);
+      return launch_loop<kDirect>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
+                                  n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     case kPrescaled:
-      return launch<kPrescaled>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
-                                wp_rows, n_phi, n_rows, no_hit, s);
+      return launch_loop<kPrescaled>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
+                                     n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     case kExpandedUV:
-      return launch<kExpandedUV>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks,
-                                 block, wp_rows, n_phi, n_rows, no_hit, s);
+      return launch_loop<kExpandedUV>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
+                                      n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,9 +10,11 @@
 // block shares one (incidence band, wind-speed group), hence one slab of
 // n_rows x all-phi LUT entries (48 rows in the fused mode, 32 in
 // fused_exact). The sweep is xs::slab::sweep (inversion_common.cuh), shared
-// with K2: four pixels a thread, one row chain a warp (rows r = w mod 4), the
-// slab's LUT, u and v rows streamed through shared memory 8 rows at a time,
-// and 32-pixel groups of padding (all s0 NaN) not swept. The first minimum
+// with K2 and K5: four pixels a thread, one row chain a warp (rows r = w mod
+// 4), the slab's LUT, u and v rows streamed through shared memory 8 rows at a
+// time (chunk_rows 16, 24 or 48 on request, for
+// scripts/bench_slab_variants.py: the same bits), and 32-pixel groups of
+// padding (all s0 NaN) not swept. The first minimum
 // over (wspd-major, phi-minor) order wins, numpy's rule. The output is the
 // reference's raw index, sentinels included:
 //   * a winner at slab row r, column c: (srow0 + r) * n_phi + c;
@@ -37,6 +39,7 @@ namespace {
 using xs::slab::kPixels;
 using xs::slab::kThreads;
 
+template <int kChunk>
 __global__ void __launch_bounds__(kThreads)
     slab_refine_kernel(const float* __restrict__ lut_pad, const float* __restrict__ u_half,
                        const float* __restrict__ v_half, const float* __restrict__ feats,
@@ -56,9 +59,21 @@ __global__ void __launch_bounds__(kThreads)
   const xs::slab::Slab slab{lut_pad + static_cast<size_t>(sband[b]) * wp_rows * n_phi + row0,
                             u_half + row0, v_half + row0, n_rows, n_phi};
   // feats rows: s0, ma/2, mz/2, 1/dsig
-  const xs::SlabArgmin m =
-      xs::slab::sweep(smem, slab, feats + static_cast<size_t>(b) * kPixels * 4, 4);
+  const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(
+      smem, slab, feats + static_cast<size_t>(b) * kPixels * 4, 4);
   out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
+}
+
+template <int kChunk>
+int launch(const float* lut_pad, const float* u_half, const float* v_half, const float* feats,
+           const int* sband, const int* srow0, const int* vmask, int* out, int n_blocks,
+           int wp_rows, int n_phi, int n_rows, int no_hit, cudaStream_t stream) {
+  const size_t smem = xs::slab::smem_bytes<xs::kDirect, kChunk>(n_phi, n_rows);
+  cudaError_t err = xs::allow_smem(slab_refine_kernel<kChunk>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  slab_refine_kernel<kChunk><<<n_blocks, kThreads, smem, stream>>>(
+      lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -66,13 +81,24 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int xs_slab_refine(const float* lut_pad, const float* u_half, const float* v_half,
                               const float* feats, const int* sband, const int* srow0,
                               const int* vmask, int* out, int n_blocks, int block, int wp_rows,
-                              int n_phi, int n_rows, int no_hit, void* stream) {
+                              int n_phi, int n_rows, int no_hit, int chunk_rows, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const size_t smem = xs::slab::smem_bytes(n_phi);
-  cudaError_t err = xs::allow_smem(slab_refine_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  slab_refine_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_rows) {
+    case 8:
+      return launch<8>(lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, n_blocks,
+                       wp_rows, n_phi, n_rows, no_hit, s);
+    case 16:
+      return launch<16>(lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, n_blocks,
+                        wp_rows, n_phi, n_rows, no_hit, s);
+    case 24:
+      return launch<24>(lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, n_blocks,
+                        wp_rows, n_phi, n_rows, no_hit, s);
+    case 48:
+      return launch<48>(lut_pad, u_half, v_half, feats, sband, srow0, vmask, out, n_blocks,
+                        wp_rows, n_phi, n_rows, no_hit, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

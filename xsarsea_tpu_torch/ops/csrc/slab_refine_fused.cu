@@ -8,10 +8,12 @@
 // chunks cover). Blocks that hold only padding (vmask == 0) write zeros and
 // stop.
 //
-// The copol sweep is xs::slab::sweep (inversion_common.cuh), shared with K3:
-// four pixels a thread, one row chain a warp (rows r = w mod 4) merged by
-// (cost, flat index), the slab's LUT, u and v rows streamed through shared
-// memory 8 rows at a time, and 32-pixel groups whose s0 are all NaN not swept.
+// The copol sweep is xs::slab::sweep (inversion_common.cuh), shared with K3
+// and K5: four pixels a thread, one row chain a warp (rows r = w mod 4)
+// merged by (cost, flat index), the slab's LUT, u and v rows streamed through
+// shared memory 8 rows at a time (chunk_rows 16, 24 or 48 on request, for
+// scripts/bench_slab_variants.py: the same bits), and 32-pixel groups whose
+// s0 are all NaN not swept.
 // The first minimum over (wspd-major, phi-minor) order wins, numpy's rule. A
 // NaN cost anywhere (a NaN s0 included) poisons the pixel to (wspd 0, phi 0),
 // as the reference's NaN-propagating min does. Then thread t takes pixel t:
@@ -39,6 +41,7 @@ namespace {
 using xs::slab::kPixels;
 using xs::slab::kThreads;
 
+template <int kChunk>
 __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
     const float* __restrict__ lut_pad, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const float* __restrict__ w_pad,
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
                             u_half + row0, v_half + row0, n_rows, n_phi};
   // feats rows: s0, ma/2, mz/2, 1/dsig, s0_cr, dsig_cr, 0, 0
   const float* feats_b = feats + static_cast<size_t>(b) * kPixels * 8;
-  const xs::SlabArgmin m = xs::slab::sweep(smem, slab, feats_b, 8);
+  const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(smem, slab, feats_b, 8);
   const bool hit = !m.poisoned && m.row >= 0;
   const float wspd_co = hit ? w_pad[r0 + m.row] : 0.0f;
   const float phi = m.poisoned ? 0.0f : co_phir[m.col];
@@ -93,6 +96,21 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
   out_b[3 * kPixels + t] = 0.0f;
 }
 
+template <int kChunk>
+int launch(const float* lut_pad, const float* u_half, const float* v_half, const float* w_pad,
+           const float* co_phir, const float* cr_lut, const float* cr_whalf, const float* feats,
+           const int* sband, const int* srow0, const int* vmask, float* out, int n_blocks,
+           int wp_rows, int n_phi, int n_rows, int n_cr, int has_cr, cudaStream_t stream) {
+  size_t smem = xs::slab::smem_bytes<xs::kDirect, kChunk>(n_phi, n_rows);
+  if (has_cr) smem = std::max(smem, xs::crosspol::smem_bytes(n_cr));  // the staged row
+  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel<kChunk>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  slab_refine_fused_kernel<kChunk><<<n_blocks, kThreads, smem, stream>>>(
+      lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband, srow0, vmask,
+      out, wp_rows, n_phi, n_rows, n_cr, has_cr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
@@ -101,15 +119,24 @@ extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
                                     const float* cr_whalf, const float* feats, const int* sband,
                                     const int* srow0, const int* vmask, float* out,
                                     int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
-                                    int n_cr, int has_cr, void* stream) {
+                                    int n_cr, int has_cr, int chunk_rows, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  size_t smem = xs::slab::smem_bytes(n_phi);
-  if (has_cr) smem = std::max(smem, xs::crosspol::smem_bytes(n_cr));  // the staged row
-  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  slab_refine_fused_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband, srow0, vmask,
-      out, wp_rows, n_phi, n_rows, n_cr, has_cr);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk_rows) {
+    case 8:
+      return launch<8>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
+                       srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+    case 16:
+      return launch<16>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
+                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+    case 24:
+      return launch<24>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
+                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+    case 48:
+      return launch<48>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
+                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

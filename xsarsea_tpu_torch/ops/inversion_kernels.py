@@ -64,6 +64,7 @@ import torch
 from xsarsea_tpu_torch.ops.bucketing import DEFAULT_BLOCK as GROUP_BLOCK
 
 __all__ = [
+    "CHUNK_ROWS",
     "CR_BLOCK",
     "EXACT_SLAB_MARGIN",
     "EXACT_SLAB_ROWS",
@@ -91,6 +92,7 @@ __all__ = [
     "reset_launch_counts",
     "slab_refine",
     "slab_refine_fused",
+    "slab_smem_bytes",
 ]
 
 WGROUP = 16  # wspd rows per group: K1's output unit, K2's bucketing unit
@@ -101,6 +103,10 @@ SLAB_ROWS = WGROUP + 2 * SLAB_MARGIN  # 48 rows: [16g-16, 16g+32)
 EXACT_SLAB_MARGIN = 8
 EXACT_SLAB_ROWS = WGROUP + 2 * EXACT_SLAB_MARGIN  # 32 rows: [16g-8, 16g+24)
 SLAB_BLOCK = 128  # pixels per K2/K3 block (one (band, group) each)
+# slab rows a shared-memory stage of the sweep holds (K2/K3's chunk_rows): 8 on
+# every path, the others for scripts/bench_slab_variants.py; multiples of the
+# sweep's 4 row chains
+CHUNK_ROWS = (8, 16, 24, 48)
 CR_BLOCK = 256  # pixels per K4 block (one crosspol band each)
 _PAD_LUT = 1e19  # padded LUT rows: cost overflows to +inf, never chosen
 _NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
@@ -111,7 +117,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 # K5 and K6 (ops/experiment_kernels.py) build into the same library
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
             "crosspol_argmin.cu", "crosspol_quotient.cu", "slab_forms.cu",
-            "group_argmin_variants.cu")
+            "group_argmin_variants.cu", "group_argmin_variants_tc.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                "--threads", "0")  # the sources compile side by side
@@ -624,9 +630,9 @@ def _load():
             lib.xs_group_argmin.restype = i
             lib.xs_group_argmin_streamed.argtypes = [p] * 9 + [i] * 6 + [p]
             lib.xs_group_argmin_streamed.restype = i
-            lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 7 + [p]
+            lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 8 + [p]
             lib.xs_slab_refine_fused.restype = i
-            lib.xs_slab_refine.argtypes = [p] * 8 + [i] * 6 + [p]
+            lib.xs_slab_refine.argtypes = [p] * 8 + [i] * 7 + [p]
             lib.xs_slab_refine.restype = i
             lib.xs_crosspol_argmin.argtypes = [p] * 5 + [i] * 3 + [p]
             lib.xs_crosspol_argmin.restype = i
@@ -634,10 +640,14 @@ def _load():
             lib.xs_crosspol_quotient.restype = i
             lib.xs_crosspol_quotient_sweep.argtypes = [ctypes.c_uint, ctypes.c_uint, p, p, p]
             lib.xs_crosspol_quotient_sweep.restype = i
-            lib.xs_slab_forms.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+            lib.xs_slab_forms.argtypes = [i, i] + [p] * 9 + [i] * 6 + [p]
             lib.xs_slab_forms.restype = i
             lib.xs_group_argmin_variant.argtypes = [p] * 4 + [i] * 4 + [p]
             lib.xs_group_argmin_variant.restype = i
+            lib.xs_group_argmin_variant_tc.argtypes = [p] * 4 + [i] * 4 + [p]
+            lib.xs_group_argmin_variant_tc.restype = i
+            lib.xs_split_g4.argtypes = [p, p, i, i, p]
+            lib.xs_split_g4.restype = i
             lib.xs_chunk_lower_bounds.argtypes = [p] * 3 + [i] * 2 + [p]
             lib.xs_chunk_lower_bounds.restype = i
             lib.xs_error_string.argtypes = [i]
@@ -804,8 +814,31 @@ def _check_rows(n_rows, wp_rows, name):
         raise ValueError(f"{name}: n_rows {n_rows} outside [1, {wp_rows}]")
 
 
+def _check_chunk_rows(chunk_rows, name):
+    if chunk_rows not in CHUNK_ROWS:
+        raise ValueError(f"{name}: chunk_rows {chunk_rows!r} not in {CHUNK_ROWS}")
+
+
+def slab_smem_bytes(n_phi, n_rows, chunk_rows=8, planes=3):
+    """Dynamic shared memory of a slab sweep's block (``xs::slab::smem_bytes``
+    in csrc/inversion_common.cuh): two stages of ``planes`` operand planes of
+    ``chunk_rows`` rows (one stage when the slab is a single chunk), rows
+    padded to a multiple of 4 floats, at least the per-warp partial minima."""
+    stages = (2 if n_rows > chunk_rows else 1) * planes * chunk_rows * ((n_phi + 3) & ~3)
+    return 4 * max(stages, 2 * 4 * SLAB_BLOCK)
+
+
+def _check_smem(n_bytes, name):
+    """Refuse a sweep whose block would need more shared memory than sm_90
+    lets a block opt in to (it would never launch)."""
+    if n_bytes > _SMEM_OPTIN:
+        raise ValueError(f"{name}: a block needs {n_bytes} bytes of shared memory, more than "
+                         f"the {_SMEM_OPTIN} a block may opt in to")
+
+
 def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                      srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS):
+                      srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS, *,
+                      chunk_rows=8):
     """K2: slab refine + decode + crosspol argmin per (band, group) block.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
@@ -818,9 +851,14 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     fused_exact) and a 0 for all-padding blocks (their output is 0). Returns
     (n_blocks, 4, block) f32 rows (wspd_co, phi, wspd_cr, 0).
     A pixel whose slab costs hold a NaN gets (0, 0); its crosspol cost
-    likewise gives 0.
+    likewise gives 0. ``chunk_rows`` (:data:`CHUNK_ROWS`): the slab rows a
+    shared-memory stage of the kernel's sweep holds; every value gives the
+    same bits (no path passes it; ``scripts/bench_slab_variants.py`` times
+    them). A height whose stages do not fit a block's shared memory is
+    refused with the bytes it needs.
     """
     n_blocks = sband.shape[0]
+    _check_chunk_rows(chunk_rows, "slab_refine_fused")
     if feats.device.type == "cpu":
         return _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
                                         cr_whalf, feats, sband, srow0, vmask, has_cr, block,
@@ -844,6 +882,8 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine_fused: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine_fused")
+    smem = slab_smem_bytes(n_phi, n_rows, chunk_rows)
+    _check_smem(max(smem, 8 * ((n_cr + 3) & ~3)) if has_cr else smem, "slab_refine_fused")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
     out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
@@ -854,14 +894,15 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), w_pad.data_ptr(),
             co_phir.data_ptr(), cr_lut.data_ptr(), cr_whalf.data_ptr(), feats.data_ptr(),
             i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, n_rows, n_cr, int(bool(has_cr)), stream)
+            n_blocks, block, wp_rows, n_phi, n_rows, n_cr, int(bool(has_cr)), chunk_rows,
+            stream)
     _check(lib, rc, "slab_refine_fused")
-    _launches["slab_refine_fused"] += 1
+    _count("slab_refine_fused", chunk_rows)
     return out
 
 
 def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK,
-                n_rows=SLAB_ROWS):
+                n_rows=SLAB_ROWS, *, chunk_rows=8):
     """K3: slab refine per (band, group) block, emitting the flat index.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
@@ -872,8 +913,10 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
     (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
     ``((2**30 // P) & ~1) * P`` for one with no finite cost (the reference's
     sentinels: clip before use as an index); 0 in all-padding blocks.
+    ``chunk_rows`` as for :func:`slab_refine_fused`.
     """
     n_blocks = sband.shape[0]
+    _check_chunk_rows(chunk_rows, "slab_refine")
     if feats.device.type == "cpu":
         return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
                                   n_rows)
@@ -891,6 +934,7 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine")
+    _check_smem(slab_smem_bytes(n_phi, n_rows, chunk_rows), "slab_refine")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
@@ -900,9 +944,9 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         rc = lib.xs_slab_refine(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), feats.data_ptr(),
             i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi), stream)
+            n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi), chunk_rows, stream)
     _check(lib, rc, "slab_refine")
-    _launches["slab_refine"] += 1
+    _count("slab_refine", chunk_rows)
     return out
 
 
@@ -1011,12 +1055,20 @@ KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_s
 _launches = dict.fromkeys(KERNELS, 0)
 
 
+def _count(name, chunk_rows=8):
+    """One launch of ``name``; K2/K3 at a chunk height other than 8 count
+    apart, as ``<name>:chunk_rows=<rows>``."""
+    key = name if chunk_rows == 8 else f"{name}:chunk_rows={chunk_rows}"
+    _launches[key] = _launches.get(key, 0) + 1
+
+
 def reset_launch_counts():
-    for name in _launches:
-        _launches[name] = 0
+    _launches.clear()
+    _launches.update(dict.fromkeys(KERNELS, 0))
 
 
 def launch_counts():
     """Kernel launches per wrapper since the last reset (plain-version
-    calls on the CPU do not count)."""
+    calls on the CPU do not count); K2/K3 at a chunk height other than 8
+    under ``<name>:chunk_rows=<rows>``, present once launched."""
     return dict(_launches)

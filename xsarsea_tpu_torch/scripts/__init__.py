@@ -32,6 +32,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_turns(fns, rounds=3, reps=1):
+    """``{name: median device ms}`` of each ``fns[name]()`` (a dict of
+    callables): one warm-up each, then ``rounds`` rounds that time each in
+    turn, forward in even rounds and backward in odd ones (a, b, b, a, ...),
+    each reading the mean of ``reps`` calls between two CUDA events. Two
+    versions compared this way share the card's state of the moment."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def median_ms(fn, device, reps=3):
     """(last output, median ms of ``reps`` runs of ``fn()`` after a warm-up):
     each run between two CUDA events on a card, on the host clock on the CPU."""

@@ -17,10 +17,12 @@ Port of ``scripts/bench_slab_forms.py``. The slab sweep evaluates, per
 
 On a 2**23-pixel seed-0 scene (``gmf_cmod5n`` copol only, ``dsig_co``
 0.1) bucketed by the port's own stage 1 (nearest incidence band, K1, the
-re-bucketing by (band, group)), it times the three forms of K5 with CUDA
-events and counts each rewrite's argmin flips against ``direct``,
-adjudicated with the float64 direct-form cost: is the flipped winner
-better, worse, or an exact float64 tie?
+re-bucketing by (band, group)), it times the three forms of K5 on both of
+its loops, the shared sweep K2 and K3 run and the one-pixel-a-thread loop
+they ran before it, in turns (CUDA events, medians of 3 after a warm-up),
+and counts each rewrite's argmin flips against ``direct``, adjudicated with
+the float64 direct-form cost: is the flipped winner better, worse, or an
+exact float64 tie?
 
 Run: ``python -m xsarsea_tpu_torch.scripts.bench_slab_forms``. It needs a
 CUDA device; :func:`main` runs the plain versions on the CPU only when
@@ -36,7 +38,7 @@ from xsarsea_tpu_torch.models import get_model
 from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.ops.bucketing import bucket_by_band, nearest_index_sorted
-from xsarsea_tpu_torch.scripts import cuda_ms, device_of
+from xsarsea_tpu_torch.scripts import cuda_ms_turns, device_of
 from xsarsea_tpu_torch.windspeed import inversion as inv
 
 N = 1 << 23
@@ -45,17 +47,24 @@ DSIG_CO = 0.1
 _BIG_IDX = 2 ** 30
 
 
-def make_scene(n, device):
-    """The JAX script's seed-0 scene: incidence, speed and direction
-    uniform, copol sigma0 (dB) forward-modelled with ``gmf_cmod5n`` in
-    float64 on ``device``, and a noisy ancillary wind."""
+def draw_scene(n):
+    """The JAX script's seed-0 draws: incidence, speed and direction
+    uniform, and a noisy ancillary wind (numpy float64)."""
     rng = np.random.default_rng(0)
     inc = rng.uniform(18.0, 47.0, n)
     wspd = rng.uniform(0.5, 45.0, n)
     phi = rng.uniform(0.0, 360.0, n)
+    anc = (wspd + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * np.deg2rad(phi))
+    return inc, wspd, phi, anc
+
+
+def make_scene(n, device):
+    """The JAX script's seed-0 scene: :func:`draw_scene`, with copol
+    sigma0 (dB) forward-modelled with ``gmf_cmod5n`` in float64 on
+    ``device``."""
+    inc, wspd, phi, anc = draw_scene(n)
     s0 = get_model("gmf_cmod5n")(*(torch.as_tensor(a, device=device) for a in (inc, wspd, phi)),
                                  broadcast=True).cpu().numpy()
-    anc = (wspd + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * np.deg2rad(phi))
     return inc, 10 * np.log10(s0 + 1e-15), anc
 
 
@@ -155,8 +164,10 @@ def flip_accounting(tables, outs, perm2, sband, s0_db, anc, dsig_co=DSIG_CO):
 def main(n=N, device="cuda", **lut_kw):
     """Run the experiment and print its lines; ``lut_kw`` (e.g. ``inc_step``)
     goes to ``to_lut`` (the default is the high-resolution LUT). Returns
-    ``{"forms": {form: {"args", "out", "ms", "ns_per_px"}}, "flips":
-    {form: {...}}, "n", "slots"}``; times are None on the CPU."""
+    ``{"forms": {form: {"args", "out", "ms", "ns_per_px", "thread": {"out",
+    "ms", "ns_per_px"}}}, "flips": {form: {...}}, "n", "slots"}``: the top
+    level of a form is its shared loop, ``thread`` the baseline loop; times
+    are None on the CPU."""
     dev = device_of(device)
     tables = inv.prepare_tables("gmf_cmod5n", None, dtype=torch.float32, **lut_kw)
     inc, s0_db, anc = make_scene(n, dev)
@@ -166,14 +177,21 @@ def main(n=N, device="cuda", **lut_kw):
           f"in {slots // K.SLAB_BLOCK} blocks of {K.SLAB_BLOCK} | device {dev}", flush=True)
     forms = {}
     for form in E.FORMS:
-        out = E.slab_forms(*args[form])
-        ms = cuda_ms(lambda a=args[form]: E.slab_forms(*a), REPS) if dev.type == "cuda" \
-            else None
-        forms[form] = {"args": args[form], "out": out, "ms": ms,
-                       "ns_per_px": None if ms is None else ms * 1e6 / n}
-        timing = "not timed (plain version on the CPU)" if ms is None else \
-            f"{ms:9.3f} ms   {ms * 1e6 / n:6.2f} ns/px"
-        print(f"slab form={form:12s} {timing}", flush=True)
+        a = args[form]
+        runs = {loop: E.slab_forms(*a, loop=loop) for loop in E.LOOPS}
+        times = cuda_ms_turns({loop: (lambda lp=loop: E.slab_forms(*a, loop=lp))
+                               for loop in E.LOOPS}, rounds=REPS) if dev.type == "cuda" else {}
+        res = {}
+        for loop in E.LOOPS:
+            ms = times.get(loop)
+            res[loop] = {"out": runs[loop], "ms": ms,
+                         "ns_per_px": None if ms is None else ms * 1e6 / n}
+            timing = "not timed (plain version on the CPU)" if ms is None else \
+                f"{ms:9.3f} ms   {ms * 1e6 / n:6.2f} ns/px"
+            print(f"slab form={form:12s} loop={loop:6s} {timing}", flush=True)
+        same = bool(torch.equal(runs["shared"], runs["thread"]))
+        print(f"slab form={form:12s} loops bit-equal: {same}", flush=True)
+        forms[form] = {"args": a, **res["shared"], "thread": res["thread"]}
 
     outs = {form: r["out"].cpu().numpy().reshape(-1) for form, r in forms.items()}
     flips = flip_accounting(tables, outs, perm2, args["direct"][6], s0_db, anc)
