@@ -61,9 +61,8 @@ from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import (PEAK_BYTES, cost_gaps, host_seconds, invert_labelled, log, make_scene,
-                        prep_scene, prepare_scene, serial_piece_loop, synthetic_tile,
-                        unfused_pair)
+from chip_smoke import (PEAK_BYTES, cost_gaps, host_seconds, invert_labelled, log, prep_scene,
+                        prepare_scene, serial_piece_loop, synthetic_tile, unfused_pair)
 
 MODELS = ("gmf_cmod5n", "gmf_s1_v2")
 
@@ -276,6 +275,7 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
+    from xsarsea_tpu_torch.bench import make_scene
     from xsarsea_tpu_torch.models import get_model
     from xsarsea_tpu_torch.ops import inversion_kernels as K
     from xsarsea_tpu_torch.windspeed.inversion import prepare_tables
@@ -287,7 +287,7 @@ def run(out_dir, n=1 << 23, n_cmp=1 << 20, reps=9):
                           check=True).stdout.strip().splitlines()[0]
     log(card)
     K.build_kernels()
-    sc = make_scene(torch, get_model, n)
+    sc = make_scene(n, device="cuda")
     tables = prepare_tables(*MODELS, dtype=torch.float32)
     dev = to_device(torch, sc["inc"], sc["s0_co_db"], sc["s0_cr_db"], sc["dsig_cr"], sc["anc"])
     prof, rate = profile_and_rate(torch, tables, dev, out_dir, "profile_table.txt", reps,

@@ -132,14 +132,22 @@ it finishes; any failure exits non-zero:
     histogram sums atomically), weights to rtol 1e-9; (e) the four stage and
     scaling scripts at their defaults (``bench_stages``, ``bench_streaks_stages``,
     ``bench_gather_sizes``, ``bench_scaling``), printing their tables; (f) the
-    seven examples, ``main()`` each on the card, with their own gates.
+    seven examples, ``main()`` each on the card, with their own gates;
+13. the port's benchmark as a user runs it, ``python -m xsarsea_tpu_torch.bench``
+    in a process of its own with its default budget (460 s): its one JSON
+    record, printed on its own line, must come with exit code 0, no skipped
+    or failed section, ``cuda_vs_exact_max_dev_m_s`` 0.0, ``rms_vs_truth_noisy_m_s``
+    in 0.346 +- 0.005, the native LUT codec built and imported with its CMOD7
+    decode bit-equal to the Python one, every rate finite and positive (the
+    fresh process's among them), and K1 and K2 and no K3 or K4 launched by
+    its headline, cmod7 and copol sections.
 
 Phases 4 and 9 run ``invert_from_model`` through the overlapped piece loop
 (preparation, kernels and result copies of neighbouring pieces at once,
 through pinned buffers) and again through the serial loop: the two results
 must be bit-equal, and both times are printed.
 
-``python3 chip_smoke.py --through N`` (N from 3 to 11) stops after phase N,
+``python3 chip_smoke.py --through N`` (N from 3 to 12) stops after phase N,
 for a quicker look at the phases before it while a kernel is being worked
 on; it prints neither of the two result lines below, which only a whole run
 earns.
@@ -169,18 +177,23 @@ import contextlib
 import functools
 import gzip
 import json
+import math
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 
 
-DATA = Path(__file__).resolve().parent / "tests" / "data"
+ROOT = Path(__file__).resolve().parent
+DATA = ROOT / "tests" / "data"
 KERNELS = {  # name: (source, TPU kernel it replaces, position of the feats argument)
     "group_argmin": ("xsarsea_tpu_torch/ops/csrc/group_argmin.cu",
                      "xsarsea_tpu/ops/pallas_inversion.py:467", 4),
@@ -338,22 +351,6 @@ def time_against_plain(torch, K, name, args, kwargs, entry):
         lambda: plain_version(K, name)(*args, **kwargs, chunk_blocks=128), 1)
     out = getattr(K, name)(*args, **kwargs)
     entry["bound_ms"], entry["bound_by"] = kernel_bound(torch, K, name, args, kwargs, out)
-
-
-def make_scene(torch, get_model, n, seed=0):
-    """The benchmark scene: uniform incidence, speed and direction, sigma0
-    forward-modelled (float64, on the card) and a noisy ancillary wind."""
-    rng = np.random.default_rng(seed)
-    inc = rng.uniform(18.0, 47.0, n)
-    wspd = rng.uniform(0.5, 45.0, n)
-    phi = rng.uniform(0.0, 360.0, n)
-    dev = [torch.as_tensor(a, device="cuda") for a in (inc, wspd, phi)]
-    s0_co = get_model("gmf_cmod5n")(*dev, broadcast=True).cpu().numpy()
-    s0_cr = get_model("gmf_s1_v2")(dev[0], dev[1], broadcast=True).cpu().numpy()
-    anc = (wspd + rng.normal(0, 1.5, n)).clip(0.2) * np.exp(1j * np.deg2rad(phi))
-    return dict(inc=inc, wspd=wspd, s0_co=s0_co, s0_cr=s0_cr, anc=anc,
-                s0_co_db=10 * np.log10(s0_co + 1e-15), s0_cr_db=10 * np.log10(s0_cr + 1e-15),
-                dsig_cr=np.full(n, 0.1))
 
 
 def cost_gaps(torch, tables, inc, s0_db, anc, wind, dsig_co=0.1, chunk=256):
@@ -1938,13 +1935,88 @@ def phase12(torch, K, sc, tables, card, seed, n_trace=1 << 22):
     log(card)
 
 
-def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
+# ------------------------------------------------- phase 13: the port's benchmark
+
+BENCH_TIMEOUT_S = 600  # the bench's own budget, 460 s, and a margin
+RMS_GATE = (0.341, 0.351)  # m/s: 0.346 +- 0.005, phase 4's gate on the same scene
+BENCH_FUSED_SECTIONS = ("headline", "cmod7", "copol")
+
+
+def run_bench(timeout_s=BENCH_TIMEOUT_S):
+    """``python -m xsarsea_tpu_torch.bench`` in a process group of its own:
+    (exit code, stdout, stderr). Past ``timeout_s`` it gets SIGTERM (it then
+    prints its partial record); whatever of the group is left is killed."""
+    proc = subprocess.Popen([sys.executable, "-m", "xsarsea_tpu_torch.bench"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    return proc.returncode, out, err
+
+
+def phase13(headline_phase5):
+    """The port's benchmark as a user runs it, in a process of its own: its
+    record, printed on its own line, and its gates."""
+    t0 = time.perf_counter()
+    rc, out, err = run_bench()
+    seconds = time.perf_counter() - t0
+    for line in err.splitlines():
+        if line.startswith("bench: "):
+            log(f"phase 13 {line}")
+    lines = out.strip().splitlines()
+    if not lines:
+        raise SystemExit(f"phase 13: the bench printed no record (exit code {rc}): "
+                         f"{' | '.join(err.strip().splitlines()[-10:])}")
+    log("phase 13 record of python -m xsarsea_tpu_torch.bench:")
+    log(lines[-1])
+    rec = json.loads(lines[-1])
+    log(f"phase 13 bench: exit code {rc} in {seconds:.1f} s; headline {rec.get('value')} Mpx/s "
+        f"(phase 5: {headline_phase5:.3f}), cmod7 {rec.get('cmod7_mpx_s')}, copol "
+        f"{rec.get('copol_mpx_s')}, fresh process {rec.get('e2e_from_host_fresh_mpx_s')} Mpx/s "
+        f"(first pass {rec.get('e2e_fresh_first_pass_s')} s)")
+    if rc != 0 or rec.get("skipped_sections") or rec.get("failed_sections"):
+        raise SystemExit(f"phase 13: the bench exited {rc}, skipped "
+                         f"{rec.get('skipped_sections')}, failed {rec.get('failed_sections')}")
+    if rec.get("cuda_vs_exact_max_dev_m_s") != 0.0:
+        raise SystemExit(f"phase 13: cuda_vs_exact_max_dev_m_s is "
+                         f"{rec.get('cuda_vs_exact_max_dev_m_s')}, not 0.0")
+    rms = rec.get("rms_vs_truth_noisy_m_s")
+    if rms is None or not RMS_GATE[0] <= rms <= RMS_GATE[1]:
+        raise SystemExit(f"phase 13: rms_vs_truth_noisy_m_s {rms} outside 0.346 +- 0.005")
+    if rec.get("native_lutio") is not True or rec.get("native_cmod7_decode_bit_equal") is not True:
+        raise SystemExit(f"phase 13: the native LUT codec did not import or its CMOD7 decode "
+                         f"is not the Python one's: native_lutio {rec.get('native_lutio')} "
+                         f"({rec.get('native_lutio_error')}), decode bit-equal "
+                         f"{rec.get('native_cmod7_decode_bit_equal')}")
+    rates = {k: rec.get(k) for k in rec if k.endswith("_mpx_s")}
+    rates.update(value=rec.get("value"), e2e_fresh_first_pass_s=rec.get("e2e_fresh_first_pass_s"),
+                 e2e_from_host_fresh_mpx_s=rec.get("e2e_from_host_fresh_mpx_s"))
+    bad = {k: v for k, v in rates.items()
+           if not isinstance(v, (int, float)) or not math.isfinite(v) or v <= 0}
+    if bad:
+        raise SystemExit(f"phase 13: rates missing, non-finite or not positive: {bad}")
+    for name in BENCH_FUSED_SECTIONS:
+        fused_launches(Counter(rec["launches"].get(name, {})), f"the bench's {name} section",
+                       "phase 13")
+
+
+def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from xsarsea_tpu_torch.models import get_model
+    from xsarsea_tpu_torch.bench import make_scene
     from xsarsea_tpu_torch.ops import inversion_kernels as K
     from xsarsea_tpu_torch.windspeed.inversion import (invert_from_model, invert_pixels,
                                                        prepare_tables)
@@ -1961,7 +2033,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
         now = time.perf_counter()
         log(f"{phase} done in {now - clock[0]:.1f} s")
         clock[0] = now
-        if phase.split()[1] == str(through) and through < 12:
+        if phase.split()[1] == str(through) and through < 13:
             log(f"stopped after phase {through}, as asked: no result line")
             raise SystemExit(0)
 
@@ -1983,7 +2055,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
     done("phase 2")
 
     t0 = time.perf_counter()
-    sc = make_scene(torch, get_model, n, seed)
+    sc = make_scene(n, seed, device="cuda")
     tables = prepare_tables(*models, dtype=torch.float32)
     log(f"scene ({n} px) and high-res tables {tables.co_lut.shape} + {tables.cr_lut.shape} "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -2080,6 +2152,12 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
     phase12(torch, K, sc, tables, card, seed)
     done("phase 12")
 
+    # phase 13: the port's benchmark, in a process of its own (this one's
+    # cached device blocks handed back first)
+    torch.cuda.empty_cache()
+    phase13(rate)
+    done("phase 13")
+
     log(json.dumps({"kernels": list(report.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2089,8 +2167,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=12, seed=0):
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--through", type=int, default=12, choices=range(3, 13), metavar="N",
-                        help="stop after phase N (3-11); the default runs all twelve phases")
+    parser.add_argument("--through", type=int, default=13, choices=range(3, 14), metavar="N",
+                        help="stop after phase N (3-12); the default runs all thirteen phases")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the scenes (default 0, which phase 4's RMS gate expects)")
     cli = parser.parse_args()

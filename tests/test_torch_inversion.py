@@ -431,7 +431,7 @@ def test_port_imports_no_jax():
             "xsarsea_tpu_torch.scripts.demo_full_scene", "xsarsea_tpu_torch.scripts.bench_stages",
             "xsarsea_tpu_torch.scripts.bench_streaks_stages",
             "xsarsea_tpu_torch.scripts.bench_gather_sizes",
-            "xsarsea_tpu_torch.scripts.bench_scaling"} | {
+            "xsarsea_tpu_torch.scripts.bench_scaling", "xsarsea_tpu_torch.bench"} | {
         f"xsarsea_tpu_torch.examples.{name}" for name in (
             "create_hh_lut", "detrend_roughness", "gmfs_and_luts", "multichip_batch",
             "out_of_core_scene", "streaks_direction", "windspeed_retrieval")} <= walked

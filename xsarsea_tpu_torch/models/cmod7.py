@@ -21,6 +21,17 @@ from xsarsea_tpu_torch.models.base import LutModel
 
 __all__ = ["Cmod7Model", "register_cmod7"]
 
+TABLE_FILE = "gmf_cmod7_vv.dat_little_endian"
+
+
+def decode_python(table_path):
+    """The table as (incidence, wspd, phi) float32, decoded by numpy (the
+    native codec's ``decode_cmod7`` gives the same array)."""
+    m, n, p = 250, 73, 51  # wspd, phi, incidence
+    raw = np.fromfile(table_path, dtype="<f4")
+    raw = raw[1:-1]  # strip the Fortran record's length markers
+    return np.ascontiguousarray(raw.reshape((m, n, p), order="F").transpose(2, 0, 1))
+
 
 class Cmod7Model(LutModel):
 
@@ -42,15 +53,12 @@ class Cmod7Model(LutModel):
     def _raw_lut(self, **kwargs):
         if not os.path.isdir(self.path):
             raise FileNotFoundError(self.path)
-        table_path = os.path.join(self.path, "gmf_cmod7_vv.dat_little_endian")
+        table_path = os.path.join(self.path, TABLE_FILE)
         _lutio = native_codec()
         if _lutio is not None:  # the record stripped and permuted in one pass
             sigma0 = _lutio.decode_cmod7(table_path)  # (incidence, wspd, phi)
         else:
-            m, n, p = 250, 73, 51  # wspd, phi, incidence
-            raw = np.fromfile(table_path, dtype="<f4")
-            raw = raw[1:-1]  # strip the Fortran record's length markers
-            sigma0 = np.ascontiguousarray(raw.reshape((m, n, p), order="F").transpose(2, 0, 1))
+            sigma0 = decode_python(table_path)
         return DimArray(
             sigma0,
             dims=("incidence", "wspd", "phi"),
