@@ -33,12 +33,12 @@ form or variant and per loop or engine (:func:`launch_counts`).
 from __future__ import annotations
 
 import contextlib
-from collections import Counter
 
 import numpy as np
 import torch
 
 from xsarsea_tpu_torch.ops import inversion_kernels as K
+from xsarsea_tpu_torch.utils import spans
 
 __all__ = [
     "ENGINES",
@@ -84,11 +84,15 @@ _M_TILE = 16  # entries per mma.sync tile (its M dimension)
 _TC_WORDS = {"highest": 4, "default": 2}
 TIE_REL = 2.0 ** -20  # a tensor-core flip must lie within this share of S_p
 
-_launches = Counter()
+_LAUNCH = "launch.experiment/"  # the launch counters' prefix among the port's counters
+
+
+def _count(key):
+    spans.count(_LAUNCH + key)
 
 
 def reset_launch_counts():
-    _launches.clear()
+    spans.reset(_LAUNCH)
 
 
 def launch_counts():
@@ -98,7 +102,7 @@ def launch_counts():
     ``group_argmin_variant_tc/<variant_name>`` on tensor cores) and g4
     split (``split_g4/<precision>``); plain-version calls on the CPU do not
     count."""
-    return dict(_launches)
+    return spans.counters(_LAUNCH)
 
 
 def variant_name(block, reduction, precision):
@@ -337,7 +341,7 @@ def slab_forms(form, lut, u, v, kr, feats, sband, srow0, vmask, block=K.SLAB_BLO
             i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(), n_blocks, block, wp_rows,
             n_phi, K.SLAB_ROWS, K._no_hit_flat(n_phi), stream)
     K._check(lib, rc, f"slab_forms[{form}, {loop}]")
-    _launches[f"slab_forms/{form}" if loop == "shared" else f"slab_forms_thread/{form}"] += 1
+    _count(f"slab_forms/{form}" if loop == "shared" else f"slab_forms_thread/{form}")
     return out
 
 
@@ -365,7 +369,7 @@ def split_g4(g4, precision):
         rc = lib.xs_split_g4(g4.data_ptr(), out.data_ptr(), n_bands,
                              int(precision == "highest"), stream)
     K._check(lib, rc, f"split_g4[{precision}]")
-    _launches[f"split_g4/{precision}"] += 1
+    _count(f"split_g4/{precision}")
     return out
 
 
@@ -436,7 +440,7 @@ def group_argmin_variant(g4, feats, band_of_block, *, block, reduction, precisio
                                              _REDUCTION_CODE[reduction], stream)
     K._check(lib, rc, f"group_argmin_variant[{name}, {engine}]")
     key = "group_argmin_variant" if engine == "cuda_cores" else "group_argmin_variant_tc"
-    _launches[f"{key}/{name}"] += 1
+    _count(f"{key}/{name}")
     return out
 
 

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from xsarsea_tpu_torch.ops.bucketing import DEFAULT_BLOCK as GROUP_BLOCK
+from xsarsea_tpu_torch.utils import spans
 
 __all__ = [
     "CHUNK_ROWS",
@@ -624,7 +625,9 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_kernels()))
+            spans.count("builds")
+            with spans.span("xs.build"):
+                lib = ctypes.CDLL(str(build_kernels()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.xs_group_argmin.argtypes = [p] * 7 + [i] * 5 + [p]
             lib.xs_group_argmin.restype = i
@@ -805,7 +808,7 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
                 feats.data_ptr(), band.data_ptr(), out.data_ptr(),
                 n_blocks, block, n_rows, n_cols, n_groups, stream)
     _check(lib, rc, name)
-    _launches[name] += 1
+    _count(name)
     return out
 
 
@@ -985,7 +988,7 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
                                     band.data_ptr(), out.data_ptr(), n_blocks, block, n_cr,
                                     stream)
     _check(lib, rc, "crosspol_argmin")
-    _launches["crosspol_argmin"] += 1
+    _count("crosspol_argmin")
     return out
 
 
@@ -1052,23 +1055,22 @@ def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_o
 KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_streamed,
            "slab_refine_fused": slab_refine_fused, "slab_refine": slab_refine,
            "crosspol_argmin": crosspol_argmin}
-_launches = dict.fromkeys(KERNELS, 0)
+_LAUNCH = "launch/"  # the launch counters' prefix among the port's counters
 
 
 def _count(name, chunk_rows=8):
     """One launch of ``name``; K2/K3 at a chunk height other than 8 count
     apart, as ``<name>:chunk_rows=<rows>``."""
-    key = name if chunk_rows == 8 else f"{name}:chunk_rows={chunk_rows}"
-    _launches[key] = _launches.get(key, 0) + 1
+    spans.count(_LAUNCH + (name if chunk_rows == 8 else f"{name}:chunk_rows={chunk_rows}"))
 
 
 def reset_launch_counts():
-    _launches.clear()
-    _launches.update(dict.fromkeys(KERNELS, 0))
+    spans.reset(_LAUNCH)
 
 
 def launch_counts():
     """Kernel launches per wrapper since the last reset (plain-version
     calls on the CPU do not count); K2/K3 at a chunk height other than 8
-    under ``<name>:chunk_rows=<rows>``, present once launched."""
-    return dict(_launches)
+    under ``<name>:chunk_rows=<rows>``, present once launched. The counters
+    are the port's ``launch/<name>`` (:mod:`xsarsea_tpu_torch.utils.spans`)."""
+    return {**dict.fromkeys(KERNELS, 0), **spans.counters(_LAUNCH)}

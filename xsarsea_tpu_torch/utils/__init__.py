@@ -14,6 +14,7 @@ host staging of copies to and from a card
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import os
 import socket
@@ -24,6 +25,7 @@ import zipfile
 import numpy as np
 import torch
 
+from xsarsea_tpu_torch.utils import spans
 from xsarsea_tpu_torch.utils.staging import to_device, to_host
 
 logger = logging.getLogger("xsarsea_tpu_torch")
@@ -215,18 +217,34 @@ def device_memory_stats():
     return out
 
 
+def _log_enabled(log):
+    """False when ``log`` is a ``logging.Logger`` method (``logger.info``...)
+    whose level the logger would drop; True for any other callable."""
+    owner = getattr(log, "__self__", None)
+    if isinstance(owner, logging.Logger):
+        level = logging.getLevelName(getattr(log, "__name__", "").upper())
+        if isinstance(level, int):
+            return owner.isEnabledFor(level)
+    return True
+
+
 def timing(logger=logger.debug):
     """Decorator logging wall time, RSS delta and device memory per call.
 
     Counterpart of the reference ``@timing`` profiler (utils.py:100-123).
     The device is synchronized before the clock is read, so the time covers
     the work the call enqueued, and the change in allocated device memory is
-    reported when the process uses a card.
+    reported when the process uses a card. When ``logger`` is a logger's
+    method at a level that logger drops, the call runs bare: no clock, no
+    synchronization, no memory reading.
     """
 
     def decorator(f):
         @functools.wraps(f)
         def wrapper(*args, **kwargs):
+            if not _log_enabled(logger):
+                return f(*args, **kwargs)
+
             def dev_mb():
                 return sum(s["bytes_in_use"] for s in device_memory_stats().values()) / 1e6
 
@@ -246,12 +264,31 @@ def timing(logger=logger.debug):
     return decorator
 
 
+def _all_threads_config():
+    """The profiler's setting that follows every thread (the piece loop's
+    workers too), where the installed torch has it; else None."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 class trace:
-    """Context manager around ``torch.profiler.profile``: CPU activity, and
-    CUDA activity when a card is present. On exit the trace is written into
+    """Context manager around ``torch.profiler.profile``: CPU activity on
+    every thread where the installed torch can follow them all, and CUDA
+    activity when a card is present. On exit the trace is written into
     ``logdir`` as ``<host>_<pid>.<ns>.pt.trace.json`` (Chrome trace format,
     read by TensorBoard's profiler plugin and by Perfetto); ``path`` names
     it and ``profile`` is the finished profiler (``key_averages()``).
+
+    The port's spans (:mod:`xsarsea_tpu_torch.utils.spans`: ``xs.call``,
+    ``xs.prep``, ...) appear in it beside the kernels. ``calls`` holds one
+    record per ``invert_pixels`` / ``invert_from_model`` call made inside
+    (entry point, pixels, seconds, the change of each counter, pinned
+    bytes, the device allocator's new segments); the trace file holds them
+    too, under ``xs_calls``.
 
     >>> with trace("traces") as tr:
     ...     invert_pixels(tables, ...)
@@ -265,6 +302,7 @@ class trace:
         self.logdir = str(logdir)
         self.path = None
         self.profile = None
+        self.calls = []
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -273,13 +311,18 @@ class trace:
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(self.logdir, exist_ok=True)
-        self.profile = profile(activities=activities)
+        config = _all_threads_config()
+        self.profile = profile(activities=activities, **(
+            {} if config is None else {"experimental_config": config}))
         self.profile.__enter__()
+        spans.start_recording(all_threads=config is not None)
         return self
 
     def __exit__(self, *exc):
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        self.calls = spans.stop_recording()
+        self.profile.add_metadata_json("xs_calls", json.dumps(self.calls))
         self.profile.__exit__(*exc)
         name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
         self.path = os.path.join(self.logdir, name)

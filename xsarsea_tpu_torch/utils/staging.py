@@ -27,6 +27,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from xsarsea_tpu_torch.utils.spans import count, span
+
 __all__ = ["PinnedPool", "HostCopy", "pool", "to_device", "to_host", "np_dtype", "torch_dtype"]
 
 _MIN_BUFFER = 1 << 16  # bytes; smaller host arrays are not worth a staging buffer
@@ -86,7 +88,9 @@ class PinnedPool:
                     return self._free.pop(i)
             self.bytes += size
             self.peak_bytes = max(self.peak_bytes, self.bytes)
-        return self._alloc(size)
+        count("pinned_new_bytes", size)
+        with span("xs.pin"):
+            return self._alloc(size)
 
     def give(self, buf, after=None):
         """Take ``buf`` back, for reuse once event ``after`` has fired."""
@@ -129,9 +133,12 @@ def to_device(a, device, dtype=None):
         a = a.detach().numpy()
     a = np.asarray(a)
     tdtype = torch_dtype(a.dtype if dtype is None else dtype)
-    if device.type == "cpu" or a.size * tdtype.itemsize < _MIN_BUFFER:
+    nbytes = a.size * tdtype.itemsize
+    if device.type == "cuda":
+        count("h2d_bytes", nbytes)
+    if device.type == "cpu" or nbytes < _MIN_BUFFER:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np_dtype(tdtype)), device=device)
-    buf = _POOL.take(a.size * tdtype.itemsize)
+    buf = _POOL.take(nbytes)
     host = _POOL.view(buf, a.shape, tdtype)
     np.copyto(host.numpy(), a, casting="unsafe")
     with torch.cuda.device(device):
@@ -159,6 +166,7 @@ class HostCopy:
             self._host = t
             return
         t = t.contiguous()
+        count("d2h_bytes", t.numel() * t.element_size())
         self._buf = _POOL.take(t.numel() * t.element_size())
         self._host = _POOL.view(self._buf, t.shape, t.dtype)
         with torch.cuda.device(t.device):
@@ -180,7 +188,8 @@ class HostCopy:
         if self._buf is None:
             out[...] = self._host.numpy()
             return out
-        self._done.synchronize()
+        with span("xs.wait.copy"):
+            self._done.synchronize()
         out[...] = self._host.numpy()
         _POOL.give(self._buf)
         self._buf = self._host = None

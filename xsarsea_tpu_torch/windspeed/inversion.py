@@ -68,6 +68,7 @@ from xsarsea_tpu_torch.ops.bucketing import (
     nearest_index_sorted,
 )
 from xsarsea_tpu_torch.utils import logger, staging, timing
+from xsarsea_tpu_torch.utils.spans import call, count, span
 
 __all__ = ["invert_from_model", "invert_pixels", "InversionTables", "prepare_tables"]
 
@@ -188,10 +189,12 @@ class InversionTables:
 
 @lru_cache(maxsize=32)
 def _cached_tables(model_co_name, model_cr_name, dtype, kwargs_key):
-    kwargs = dict(kwargs_key)
-    lut_co = get_model(model_co_name).to_lut(units="dB", **kwargs) if model_co_name else None
-    lut_cr = get_model(model_cr_name).to_lut(units="dB", **kwargs) if model_cr_name else None
-    return InversionTables(lut_co, lut_cr, dtype=dtype)
+    count("builds")
+    with span("xs.build"):
+        kwargs = dict(kwargs_key)
+        lut_co = get_model(model_co_name).to_lut(units="dB", **kwargs) if model_co_name else None
+        lut_cr = get_model(model_cr_name).to_lut(units="dB", **kwargs) if model_cr_name else None
+        return InversionTables(lut_co, lut_cr, dtype=dtype)
 
 
 def prepare_tables(model_co=None, model_cr=None, dtype=torch.float32, **kwargs):
@@ -199,12 +202,13 @@ def prepare_tables(model_co=None, model_cr=None, dtype=torch.float32, **kwargs):
     def hashable(v):
         return tuple(v) if isinstance(v, (list, np.ndarray)) else v
 
-    return _cached_tables(
-        get_model(model_co).name if model_co is not None else None,
-        get_model(model_cr).name if model_cr is not None else None,
-        dtype,
-        tuple(sorted((k, hashable(v)) for k, v in kwargs.items())),
-    )
+    with span("xs.tables"):
+        return _cached_tables(
+            get_model(model_co).name if model_co is not None else None,
+            get_model(model_cr).name if model_cr is not None else None,
+            dtype,
+            tuple(sorted((k, hashable(v)) for k, v in kwargs.items())),
+        )
 
 
 # ------------------------------------------------------------- exact path
@@ -443,87 +447,94 @@ def _make_fused_invert_fn(tables, device, coarse=True):
     nan = float("nan")
 
     def run(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, dsig_co):
-        n = inc.shape[0]
-        mz = torch.abs(anc_im) if phi_180 else anc_im
-        cols = [s0_co_db.to(f32), anc_re.to(f32) * 0.5, mz.to(f32) * 0.5,
-                (1.0 / dsig_co).to(f32).expand(n)]
-        if fused_tail:  # K2's crosspol columns
-            zero = torch.zeros(n, dtype=f32, device=inc.device)
-            cols += [s0_cr_db.to(f32) if has_cr else zero, dsig_cr.to(f32) if has_cr else zero,
-                     zero, zero]
-        pix = torch.stack(cols, dim=1)
-        by_value = boundary_keys is not None and inc.dtype == f32
-        if coarse and by_value:
-            perm, band_of_block = bucket_by_value(inc, boundary_keys, n_inc, block)
-        else:
-            band = band_of_value(inc, boundary_keys) if by_value \
-                else nearest_index_sorted(inc_grid, inc)
-            if coarse:
-                perm, band_of_block = bucket_by_band(band, n_inc, block)
+        with span("xs.bucket"):
+            n = inc.shape[0]
+            mz = torch.abs(anc_im) if phi_180 else anc_im
+            cols = [s0_co_db.to(f32), anc_re.to(f32) * 0.5, mz.to(f32) * 0.5,
+                    (1.0 / dsig_co).to(f32).expand(n)]
+            if fused_tail:  # K2's crosspol columns
+                zero = torch.zeros(n, dtype=f32, device=inc.device)
+                cols += [s0_cr_db.to(f32) if has_cr else zero, dsig_cr.to(f32) if has_cr else zero,
+                         zero, zero]
+            pix = torch.stack(cols, dim=1)
+            by_value = boundary_keys is not None and inc.dtype == f32
+            if coarse and by_value:
+                perm, band_of_block = bucket_by_value(inc, boundary_keys, n_inc, block)
             else:
-                # fused_exact: each band's pixels in ascending order of their
-                # prior's radius |(ma/2, mz/2)|, so that a block's priors lie
-                # close and K1's streamed form sweeps few groups for it
-                perm, band_of_block = bucket_by_band_sorted(
-                    band, torch.hypot(pix[:, 1], pix[:, 2]), n_inc, block)
-        valid = perm >= 0
+                band = band_of_value(inc, boundary_keys) if by_value \
+                    else nearest_index_sorted(inc_grid, inc)
+                if coarse:
+                    perm, band_of_block = bucket_by_band(band, n_inc, block)
+                else:
+                    # fused_exact: each band's pixels in ascending order of their
+                    # prior's radius |(ma/2, mz/2)|, so that a block's priors lie
+                    # close and K1's streamed form sweeps few groups for it
+                    perm, band_of_block = bucket_by_band_sorted(
+                        band, torch.hypot(pix[:, 1], pix[:, 2]), n_inc, block)
+            valid = perm >= 0
 
-        # stage 1: coarse group argmin per incidence-band block (K1)
-        feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
-        gstar = getattr(K, k1_name)(*k1_ops, feats1, band_of_block, n_wgroups,
-                                    **k1_kw).reshape(-1)
+            # stage 1: coarse group argmin per incidence-band block (K1)
+            feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
 
-        # stage 2: re-bucket by (band, group) for the slab refine
-        perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
-                                             n_wgroups=n_wgroups, block=block,
-                                             slab_block=K.SLAB_BLOCK)
-        valid2 = perm2 >= 0
-        dst = perm2[valid2]  # every pixel id sits in exactly one valid slot
-        sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
-        srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - margin, 0,
-                            wp_rows - slab_rows)
-        vmask = valid2.reshape(-1, K.SLAB_BLOCK).any(dim=1)
-        feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], nan)
+        with span("xs.coarse"):
+            gstar = getattr(K, k1_name)(*k1_ops, feats1, band_of_block, n_wgroups,
+                                        **k1_kw).reshape(-1)
 
-        if fused_tail:
-            # slab refine + decode + crosspol (K2), then back to pixel order
-            vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
-                                       has_cr=has_cr, block=K.SLAB_BLOCK, n_rows=slab_rows)
-            slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
-            res = torch.empty((3, n), dtype=f32, device=inc.device)
-            res[:, dst] = slots[:3]
-            wspd_co_raw, phir_sol, wspd_dual = res[0], res[1], res[2] if has_cr else None
-        else:
-            # slab refine emitting the winner's index (K3), decoded in pixel
-            # order; the reference clips its sentinels to the last grid cell
-            # (inversion.py:940-946)
-            flat_r = K.slab_refine(*direct[:3], feats2, sband, srow0, vmask,
-                                   block=K.SLAB_BLOCK, n_rows=slab_rows)
-            flat = torch.zeros(n, dtype=torch.int64, device=inc.device)
-            flat[dst] = flat_r.reshape(-1)[valid2].to(torch.int64)
-            flat = flat.clamp(0, n_wspd * n_phi - 1)
-            wspd_co_raw = direct[3][torch.div(flat, n_phi, rounding_mode="floor")]
-            phir_sol = co_phir[flat % n_phi]
+        with span("xs.rebucket"):
+            # stage 2: re-bucket by (band, group) for the slab refine
+            perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
+                                                 n_wgroups=n_wgroups, block=block,
+                                                 slab_block=K.SLAB_BLOCK)
+            valid2 = perm2 >= 0
+            dst = perm2[valid2]  # every pixel id sits in exactly one valid slot
+            sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
+            srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - margin, 0,
+                                wp_rows - slab_rows)
+            vmask = valid2.reshape(-1, K.SLAB_BLOCK).any(dim=1)
+            feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], nan)
 
-            # stage 3: re-bucket by crosspol incidence band, crosspol argmin
-            # (K4) with the copol speed as prior where copol solved
-            # (inversion.py:949-981; its same-axis branch cannot occur here,
-            # the tail runs only when the axes differ)
-            wspd_co_m = torch.where(torch.isnan(s0_co_db), nan, wspd_co_raw)
-            has_co = (~torch.isnan(wspd_co_m)).to(f32)
-            perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc),
-                                          cr_grid.shape[0], K.CR_BLOCK)
-            valid3 = perm3 >= 0
-            pix3 = torch.stack([s0_cr_db.to(f32), dsig_cr.to(f32),
-                                torch.where(has_co > 0, wspd_co_m, 0.0) * 0.5, has_co], dim=1)
-            feats3 = torch.where(valid3[:, None], pix3[perm3.clamp(min=0)], nan)
-            wd = K.crosspol_argmin(*cr_ops, feats3, band3, block=K.CR_BLOCK)
-            wspd_dual = torch.zeros(n, dtype=f32, device=inc.device)
-            wspd_dual[perm3[valid3]] = wd.reshape(-1)[valid3]
-        return _postprocess_vectorized(
-            inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, wspd_co_raw,
-            torch.cos(phir_sol), torch.sin(phir_sol), phir_sol, wspd_dual,
-            phi_180=phi_180, has_cr=has_cr)
+        with span("xs.refine"):
+            if fused_tail:
+                # slab refine + decode + crosspol (K2), then back to pixel order
+                vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
+                                           has_cr=has_cr, block=K.SLAB_BLOCK, n_rows=slab_rows)
+                slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
+                res = torch.empty((3, n), dtype=f32, device=inc.device)
+                res[:, dst] = slots[:3]
+                wspd_co_raw, phir_sol, wspd_dual = res[0], res[1], res[2] if has_cr else None
+            else:
+                # slab refine emitting the winner's index (K3), decoded in pixel
+                # order; the reference clips its sentinels to the last grid cell
+                # (inversion.py:940-946)
+                flat_r = K.slab_refine(*direct[:3], feats2, sband, srow0, vmask,
+                                       block=K.SLAB_BLOCK, n_rows=slab_rows)
+                flat = torch.zeros(n, dtype=torch.int64, device=inc.device)
+                flat[dst] = flat_r.reshape(-1)[valid2].to(torch.int64)
+                flat = flat.clamp(0, n_wspd * n_phi - 1)
+                wspd_co_raw = direct[3][torch.div(flat, n_phi, rounding_mode="floor")]
+                phir_sol = co_phir[flat % n_phi]
+
+                # stage 3: re-bucket by crosspol incidence band, crosspol argmin
+                # (K4) with the copol speed as prior where copol solved
+                # (inversion.py:949-981; its same-axis branch cannot occur here,
+                # the tail runs only when the axes differ)
+                wspd_co_m = torch.where(torch.isnan(s0_co_db), nan, wspd_co_raw)
+                has_co = (~torch.isnan(wspd_co_m)).to(f32)
+                perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc),
+                                              cr_grid.shape[0], K.CR_BLOCK)
+                valid3 = perm3 >= 0
+                pix3 = torch.stack([s0_cr_db.to(f32), dsig_cr.to(f32),
+                                    torch.where(has_co > 0, wspd_co_m, 0.0) * 0.5, has_co], dim=1)
+                feats3 = torch.where(valid3[:, None], pix3[perm3.clamp(min=0)], nan)
+                wd = K.crosspol_argmin(*cr_ops, feats3, band3, block=K.CR_BLOCK)
+                wspd_dual = torch.zeros(n, dtype=f32, device=inc.device)
+                wspd_dual[perm3[valid3]] = wd.reshape(-1)[valid3]
+
+        with span("xs.post"):
+            return _postprocess_vectorized(
+                inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, wspd_co_raw,
+                torch.cos(phir_sol), torch.sin(phir_sol), phir_sol, wspd_dual,
+                phi_180=phi_180, has_cr=has_cr)
 
     return run
 
@@ -546,12 +557,15 @@ def _get_invert_fn(tables, chunk_size, mode, device):
     else:
         key = (mode, str(torch.device(device)), _COARSE_DW, _COARSE_DPHI, _COARSE_MARGIN)
     cache = tables._invert_fn_cache
-    if key not in cache:
-        if mode == "exact":
-            cache[key] = _make_exact_fn(tables, chunk_size, device)
-        else:
-            cache[key] = _make_fused_invert_fn(tables, device, coarse=mode == "fused")
-    return cache[key]
+    with span("xs.tables"):
+        if key not in cache:
+            count("builds")
+            with span("xs.build"):
+                if mode == "exact":
+                    cache[key] = _make_exact_fn(tables, chunk_size, device)
+                else:
+                    cache[key] = _make_fused_invert_fn(tables, device, coarse=mode == "fused")
+        return cache[key]
 
 
 # ------------------------------------------------------ streamed piece source
@@ -707,13 +721,14 @@ class _Lanes:
     def prepare(self, source, lo, hi, dtype):
         """The piece's input tensors, made on the copy-in stream, and the
         event that says they are ready."""
-        if self.copy_in is None:
-            return source.streams(lo, hi, self.device, dtype), None
-        with torch.cuda.stream(self.copy_in):
-            tensors = source.streams(lo, hi, self.device, dtype)
-            ready = torch.cuda.Event()
-            ready.record()
-        return tensors, ready
+        with span("xs.prep"):
+            if self.copy_in is None:
+                return source.streams(lo, hi, self.device, dtype), None
+            with torch.cuda.stream(self.copy_in):
+                tensors = source.streams(lo, hi, self.device, dtype)
+                ready = torch.cuda.Event()
+                ready.record()
+            return tensors, ready
 
     def join(self, tensors, ready):
         """Make the current stream wait for a prepared piece."""
@@ -764,6 +779,7 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
     dsig_t = torch.tensor(dsig_co, dtype=dtype, device=device)
     n = source.n
     bounds = _pieces(n, piece_size or (1 << 22))
+    count("pieces", len(bounds))
     # with the inputs on the device and the results staying there, a piece has
     # no copy to hide: the lanes would only add their threads' hand-overs
     resident = device_output and isinstance(source, _PreparedSource) and source.resident(device)
@@ -771,9 +787,10 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
     lanes = _Lanes(device, overlap)
 
     def compute(prepared):
-        lanes.join(*prepared)
-        co_re, co_im, du_re, du_im = fn(*prepared[0], dsig_t)
-        return torch.complex(co_re, co_im), torch.complex(du_re, du_im)
+        with span("xs.compute"):
+            lanes.join(*prepared)
+            co_re, co_im, du_re, du_im = fn(*prepared[0], dsig_t)
+            return torch.complex(co_re, co_im), torch.complex(du_re, du_im)
 
     parts = []
     if not device_output:
@@ -782,8 +799,9 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
         wind_dual = np.empty(n, dtype=ctype)
 
     def drain(copies, lo, hi):
-        copies[0].into(wind_co[lo:hi])
-        copies[1].into(wind_dual[lo:hi])
+        with span("xs.drain"):
+            copies[0].into(wind_co[lo:hi])
+            copies[1].into(wind_dual[lo:hi])
 
     if not overlap:
         for lo, hi in bounds:
@@ -798,22 +816,26 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
             ahead = prep_worker.submit(lanes.prepare, source, *bounds[0], dtype)
             drains = []
             for i, (lo, hi) in enumerate(bounds):
-                prepared = ahead.result()
+                with span("xs.wait.prep"):
+                    prepared = ahead.result()
                 if i + 1 < len(bounds):
                     ahead = prep_worker.submit(lanes.prepare, source, *bounds[i + 1], dtype)
                 if len(drains) >= 2:
-                    drains[-2].result()  # at most two pieces' results in flight
+                    with span("xs.wait.drain"):
+                        drains[-2].result()  # at most two pieces' results in flight
                 winds = compute(prepared)
                 if device_output:
                     parts.append(winds)
                 else:
                     copies = [staging.HostCopy(w, lanes.copy_out) for w in winds]
                     drains.append(drain_worker.submit(drain, copies, lo, hi))
-            for d in drains:
-                d.result()
+            with span("xs.wait.drain"):
+                for d in drains:
+                    d.result()
 
     if device_output:
-        co, dual = (torch.cat(p) for p in zip(*parts))
+        with span("xs.cat"):
+            co, dual = (torch.cat(p) for p in zip(*parts))
         return co, dual
     return wind_co, wind_dual
 
@@ -828,9 +850,11 @@ def invert_pixels(tables, inc, s0_co_db, s0_cr_db, dsig_cr, ancillary_wind, dsig
     ``device`` with ``device_output=True``. ``chunk_size`` is the exact
     path's pixels per batch. See the module docstring for ``mode``.
     """
-    source = _PreparedSource(inc, s0_co_db, s0_cr_db, dsig_cr, ancillary_wind)
-    return _invert_source(tables, source, dsig_co=dsig_co, chunk_size=chunk_size, mode=mode,
-                          device=device, device_output=device_output, piece_size=piece_size)
+    with call("invert_pixels", device, int(inc.shape[0])):
+        source = _PreparedSource(inc, s0_co_db, s0_cr_db, dsig_cr, ancillary_wind)
+        return _invert_source(tables, source, dsig_co=dsig_co, chunk_size=chunk_size,
+                              mode=mode, device=device, device_output=device_output,
+                              piece_size=piece_size)
 
 
 # ------------------------------------------------------------- public facade
@@ -892,50 +916,59 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
+    with call("invert_from_model", device) as this:
+        with span("xs.validate"):
+            models, shape, raw_inc, raw_s0_co, raw_s0_cr = _check_inputs(
+                inc, sigma0, sigma0_dual, ancillary_wind, model)
+        this.pixels = int(np.prod(shape, dtype=np.int64))
+        tables = prepare_tables(models[0], models[1], dtype=dtype, **kwargs)
+        source = _LazySource(shape, raw_inc, s0_co=raw_s0_co, s0_cr=raw_s0_cr,
+                             dsig_cr=_raw_data(dsig_cr), anc=_raw_data(ancillary_wind),
+                             device_db=device_db)
+        wind_co, wind_dual = _invert_source(tables, source, dsig_co=dsig_co, mode=mode,
+                                            device=device, piece_size=piece_size)
+        with span("xs.merge"):
+            template = next((v for v in (sigma0, inc) if isinstance(v, DimArray)), None)
+            return _merge_and_wrap(wind_co.reshape(shape), wind_dual.reshape(shape), models,
+                                   template, dual=sigma0_dual is not None)
 
+
+def _check_inputs(inc, sigma0, sigma0_dual, ancillary_wind, model):
+    """``invert_from_model``'s checks of its inputs: the models (copol,
+    crosspol; None where absent), the scene shape and the raw incidence and
+    sigma0 streams."""
     models = model if isinstance(model, tuple) else (model, None)
     models = tuple(get_model(m) if m is not None else None for m in models)
-    template = next((v for v in (sigma0, inc) if isinstance(v, DimArray)), None)
-
     raw_inc = _raw_data(inc)
     raw_s0 = _raw_data(sigma0)
     shape = tuple(np.shape(raw_s0))
+    if sigma0_dual is not None:
+        return models, shape, raw_inc, raw_s0, _raw_data(sigma0_dual)
 
-    if sigma0_dual is None:
-        pol = None
-        if isinstance(sigma0, DimArray):
-            pol_c = sigma0.coords.get("pol")
-            if pol_c is not None and np.asarray(pol_c).size == 1:
-                pol = str(np.asarray(pol_c).reshape(-1)[0])
-        model_pol = models[0].pol
-        if pol is None:
-            warnings.warn(f"Unable to check sigma0 pol. Assuming {model_pol}")
-        elif pol not in model_pol:
-            raise ValueError(
-                f"sigma0 pol is {pol}, and model {models[0].name} can only handle {model_pol}")
-        if models[0].iscopol:
-            raw_s0_co, raw_s0_cr = raw_s0, None
-            if not _any_valid(ancillary_wind):
-                raise ValueError("copol inversion requires valid ancillary_wind")
-        else:
-            raw_s0_co, raw_s0_cr = None, raw_s0
-            if _any_valid(ancillary_wind):
-                warnings.warn("crosspol inversion is best without ancillary wind, "
-                              "but using it as requested.")
-            models = (None, models[0])
-    else:
-        raw_s0_co = raw_s0
-        raw_s0_cr = _raw_data(sigma0_dual)
+    pol = None
+    if isinstance(sigma0, DimArray):
+        pol_c = sigma0.coords.get("pol")
+        if pol_c is not None and np.asarray(pol_c).size == 1:
+            pol = str(np.asarray(pol_c).reshape(-1)[0])
+    model_pol = models[0].pol
+    if pol is None:
+        warnings.warn(f"Unable to check sigma0 pol. Assuming {model_pol}")
+    elif pol not in model_pol:
+        raise ValueError(
+            f"sigma0 pol is {pol}, and model {models[0].name} can only handle {model_pol}")
+    if models[0].iscopol:
+        if not _any_valid(ancillary_wind):
+            raise ValueError("copol inversion requires valid ancillary_wind")
+        return models, shape, raw_inc, raw_s0, None
+    if _any_valid(ancillary_wind):
+        warnings.warn("crosspol inversion is best without ancillary wind, "
+                      "but using it as requested.")
+    return (None, models[0]), shape, raw_inc, None, raw_s0
 
-    tables = prepare_tables(models[0], models[1], dtype=dtype, **kwargs)
-    source = _LazySource(shape, raw_inc, s0_co=raw_s0_co, s0_cr=raw_s0_cr,
-                         dsig_cr=_raw_data(dsig_cr), anc=_raw_data(ancillary_wind),
-                         device_db=device_db)
-    wind_co, wind_dual = _invert_source(tables, source, dsig_co=dsig_co, mode=mode,
-                                        device=device, piece_size=piece_size)
-    wind_co = wind_co.reshape(shape)
-    wind_dual = wind_dual.reshape(shape)
 
+def _merge_and_wrap(wind_co, wind_dual, models, template, dual):
+    """The dual-pol merge, in place over ``wind_dual``, and each result
+    wrapped like ``template`` (a DimArray, or None for plain arrays)."""
     def wrap(data, comment, model_names):
         if template is None:
             return data
@@ -944,7 +977,7 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
         out.name = "windspeed_gmf"
         return out
 
-    if sigma0_dual is None:
+    if not dual:
         if models[0] is not None:
             return wrap(wind_co, f"wind speed and direction inverted from model "
                                  f"{models[0].name} ({models[0].pol})", models[0].name)
