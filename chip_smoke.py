@@ -20,12 +20,14 @@ it finishes; any failure exits non-zero:
    its windows and an edge set with the crosspol LUT's own differences;
 4. the main path: dual-pol ``invert_from_model`` with models
    (gmf_cmod5n, gmf_s1_v2) on a 2**23-pixel seed-0 scene forward-modelled
-   with the port's GMFs, checking that both kernels were launched, plus the
-   speed RMS against the true wind over the first 2**20 pixels;
+   with the port's GMFs, checking that both kernels were launched and the
+   dual-pol merge kernel ``dual_merge`` once a piece, plus the speed RMS
+   against the true wind over the first 2**20 pixels;
 5. ``invert_pixels`` on device-resident float32 inputs, median of 3 timed
    runs after a warm-up; then, on the arguments the main path gave each
    kernel (one 2**22-pixel piece), the kernel against its plain version bit
-   for bit, and the time of each;
+   for bit, and the time of each; ``dual_merge`` likewise on the main path's
+   last piece (phase 4), beside the two ``torch.complex`` calls it replaced;
 6. fused against exact, both on the card, on the first 2**16 pixels;
 7. the unfused tail: LUT-file models ``gmf_cmod7`` (the KNMI fixture,
    high-res 501 x 499 x 181) and ``sarwing_lut__fix_cr_2_1`` (the sarwing
@@ -279,10 +281,11 @@ def kernel_bound(torch, K, name, args, kwargs, out):
 
 
 @contextlib.contextmanager
-def captured_calls(K):
-    """Record the last arguments each kernel wrapper was called with."""
+def captured_calls(K, names=None):
+    """Record the last arguments each kernel wrapper (``names``, by default
+    the argmin kernels of ``K.KERNELS``) was called with."""
     calls = {}
-    originals = {name: getattr(K, name) for name in K.KERNELS}
+    originals = {name: getattr(K, name) for name in names or K.KERNELS}
 
     def recorder(name, fn):
         def record(*args, **kwargs):
@@ -320,6 +323,34 @@ def hold_against_plain(torch, K, name, args, kwargs, phase):
         raise SystemExit(f"{phase}: {name} differs from its plain version on {bad} "
                          f"of {ref.numel()} outputs")
     return float((got.double() - ref.double()).abs().max()), ref.numel()
+
+
+def hold_merge(torch, K, args, entry, phase):
+    """``dual_merge`` against its plain version on the arguments the main
+    path gave it, bit for bit (NaN payloads included); exit unless equal.
+    Then its time, its plain version's, the two ``torch.complex`` calls it
+    replaces (the same bytes, no merge) and its bound (bytes)."""
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    got = K.dual_merge(*args)
+    ref = K._dual_merge_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("wind_co", "wind_dual"), got, ref):
+        g, r = (torch.view_as_real(w).view(torch.int32) for w in (g, r))
+        if g.shape != r.shape or not torch.equal(g, r):
+            bad = int((g != r).any(-1).sum()) if g.shape == r.shape else "all"
+            raise SystemExit(f"{phase}: dual_merge's {name} differs from its plain version on "
+                             f"{bad} of {args[0].numel()} pixels")
+    took = int((got[1] == got[0]).sum())
+    entry["ms"] = cuda_ms(lambda: K.dual_merge(*args), 20)
+    entry["plain_ms"] = cuda_ms(lambda: K._dual_merge_plain(*args), 1)
+    pack_ms = cuda_ms(lambda: (torch.complex(args[0], args[1]), torch.complex(args[2], args[3])),
+                      20)
+    entry["bound_ms"], entry["bound_by"] = bound(0, nbytes(torch, *args, *got))
+    log(f"{phase} dual_merge: bit-equal to its plain version on {args[0].numel()} px of the main "
+        f"path's last piece ({took} dual-pol winds equal the copol wind); kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.3f} ms, the two torch.complex calls it replaces {pack_ms:.4f} ms, "
+        f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
 
 
 def feats_of(name, args):
@@ -2018,8 +2049,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
         return 1
     from xsarsea_tpu_torch.bench import make_scene
     from xsarsea_tpu_torch.ops import inversion_kernels as K
-    from xsarsea_tpu_torch.windspeed.inversion import (invert_from_model, invert_pixels,
-                                                       prepare_tables)
+    from xsarsea_tpu_torch.windspeed.inversion import (_pieces, invert_from_model,
+                                                       invert_pixels, prepare_tables)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2027,6 +2058,11 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
     report = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "max_abs_err": 0.0, "library_ms": None}
               for name, (src, rep, _) in KERNELS.items()}
+    report["dual_merge"] = {"name": "dual_merge", "route": "cuda",
+                            "source": "xsarsea_tpu_torch/ops/csrc/dual_merge.cu",
+                            "replaces": "xsarsea_tpu/windspeed/inversion.py:1652 (numpy on the "
+                                        "host; no pallas_call)",
+                            "max_abs_err": 0.0, "library_ms": None}
     clock = [time.perf_counter()]
 
     def done(phase):
@@ -2078,7 +2114,8 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
             dsig_cr=0.1, model=models, device="cuda")
 
     K.reset_launch_counts()
-    (wind_co, wind_dual), seconds = host_seconds(torch, main_path)
+    with captured_calls(K, ("dual_merge",)) as merge_calls:
+        (wind_co, wind_dual), seconds = host_seconds(torch, main_path)
     launches = K.launch_counts()
     (wind_co, wind_dual), seconds_again = host_seconds(torch, main_path)
     seconds_serial = hold_against_serial_loop(torch, main_path, (wind_co, wind_dual),
@@ -2087,6 +2124,11 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
         if launches[name] == 0:
             raise SystemExit(f"phase 4: kernel {name} was not launched by the main path")
         report[name]["launches"] = launches[name]
+    pieces = len(_pieces(n, 1 << 22))
+    if launches.get("dual_merge", 0) != pieces:
+        raise SystemExit(f"phase 4: dual_merge launched {launches.get('dual_merge', 0)} times "
+                         f"by the main path, not once for each of its {pieces} pieces")
+    report["dual_merge"]["launches"] = launches["dual_merge"]
     if launches["slab_refine"] or launches["crosspol_argmin"]:
         raise SystemExit("phase 4: the fused tail launched a kernel of the unfused tail")
     for name, w in (("wind_co", wind_co), ("wind_dual", wind_dual)):
@@ -2121,6 +2163,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
             f"{report[name]['ms']:.3f} ms, plain {report[name]['plain_ms']:.3f} ms per call, "
             f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})"
             f"{sweep_note(torch, K, name, args)}")
+    hold_merge(torch, K, merge_calls["dual_merge"][0], report["dual_merge"], "phase 5")
     done("phase 5")
 
     # phase 6: fused against exact on the card

@@ -1139,3 +1139,101 @@ def test_gmf_grid_of_card_tensors(cuda):
         assert isinstance(got.coords[d], np.ndarray)
         np.testing.assert_array_equal(got.coords[d], g)
     np.testing.assert_allclose(got.values, ref.values, rtol=1e-12)
+
+
+def _merge_bits(w):
+    return torch.view_as_real(w).view(torch.int32).cpu()
+
+
+def test_dual_merge_bit_equal_to_plain_version(cuda):
+    """``dual_merge`` against its plain version (on the CPU) on 2**22 random
+    px with NaN in either part, the seams of ``test_torch_dual_merge`` in
+    either wind at the front: 16-byte aligned planes (the float4 loop and a
+    ragged tail) and planes one float off (one pixel a thread)."""
+    from test_torch_dual_merge import _seams
+
+    rng = np.random.default_rng(31)
+    n = (1 << 22) + 3
+    planes = rng.normal(0, 6, (4, n + 1)).astype(np.float32)
+    for row in planes:
+        row[rng.integers(0, n, 3000)] = np.nan
+    seam = _seams()
+    k = seam.shape[0]
+    planes[0, :k], planes[1, :k] = seam.real, seam.imag
+    planes[2, k:2 * k], planes[3, k:2 * k] = seam.real, seam.imag
+    dev = torch.as_tensor(planes, device=cuda)
+    K.reset_launch_counts()
+    for lo in (0, 1):
+        args = [p[lo:lo + n] for p in dev]
+        assert (args[0].data_ptr() % 16 == 0) == (lo == 0)
+        got = K.dual_merge(*args)
+        ref = K._dual_merge_plain(*(a.cpu() for a in args))
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.complex64 and g.device.type == "cuda"
+            assert torch.equal(_merge_bits(g), _merge_bits(r))
+    assert K.launch_counts()["dual_merge"] == 2
+
+
+def test_invert_from_model_merges_on_card(cuda):
+    """Dual-pol ``invert_from_model`` on the card in three pieces: one
+    ``dual_merge`` launch a piece, every pixel counted as merged on the card,
+    the numpy merge's winds bit for bit except where a speed lies within one
+    float32 ulp of 5 m/s, and the overlapped lanes the serial loop's bits.
+    Mono-pol calls, ``invert_pixels`` and float64 tables launch no merge."""
+    from xsarsea_tpu_torch.utils import spans
+    from xsarsea_tpu_torch.windspeed.inversion import _invert_source, _LazySource
+
+    steps = dict(inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    piece = 1 << 18
+    n = 3 * piece - 77
+    inc, s0_co, s0_cr, anc = _stream_scene(n, 23)
+    before = spans.counters()
+    K.reset_launch_counts()
+    co, dual = invert_from_model(inc, s0_co, s0_cr, ancillary_wind=anc,
+                                 model=("gmf_cmod5n", "gmf_s1_v2"), piece_size=piece, **steps)
+    after = spans.counters()
+    assert K.launch_counts()["dual_merge"] == 3
+    assert after["merge_px_card"] - before["merge_px_card"] == n
+    assert after["merge_px_host"] == before["merge_px_host"]
+
+    tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=torch.float32, **steps)
+
+    def run(**kw):
+        src = _LazySource((n,), inc, s0_co=s0_co, s0_cr=s0_cr, dsig_cr=0.1, anc=anc)
+        return _invert_source(tables, src, device=cuda, piece_size=piece, **kw)
+
+    raw_co, raw_du = run()
+    assert _same_bits(co, raw_co)
+    take = (np.abs(raw_co) < 5) | (np.abs(raw_du) < 5)
+    host = np.where(take, raw_co, raw_du)
+    ulp = np.spacing(np.float32(5))
+    near = np.zeros(n, bool)
+    for w in (raw_co, raw_du):
+        with np.errstate(invalid="ignore"):
+            near |= np.abs(np.abs(w.astype(np.complex128)) - 5) <= ulp
+    differ = dual.view(np.uint64) != host.view(np.uint64)
+    assert not (differ & ~near).any(), int((differ & ~near).sum())
+    # near: mostly speeds on the LUT's 5 m/s row (every 25th of its 0.2-m/s
+    # rows), whose float32 modulus falls either side of 5 with the direction
+    assert near.mean() < 0.02, (int(near.sum()), int(differ.sum()))
+
+    serial = run(merge=True, _overlap=False)
+    assert _same_bits(serial[0], co) and _same_bits(serial[1], dual)
+    for _ in range(2):  # the lanes' timing differs run to run: the bits must not
+        for got, ref in zip(run(merge=True), serial):
+            assert _same_bits(got, ref)
+
+    K.reset_launch_counts()
+    invert_from_model(inc, s0_co, ancillary_wind=anc, model="gmf_cmod5n", **steps)
+    db = lambda x: 10 * np.log10(x + 1e-15)  # noqa: E731
+    invert_pixels(tables, inc, db(s0_co), db(s0_cr), np.full(n, 0.1), anc, device=cuda)
+    assert K.launch_counts().get("dual_merge", 0) == 0
+    m = 2048
+    before = spans.counters()
+    invert_from_model(inc[:m], s0_co[:m], s0_cr[:m], ancillary_wind=anc[:m],
+                      model=("gmf_cmod5n", "gmf_s1_v2"), dtype=torch.float64, mode="exact",
+                      **steps)
+    after = spans.counters()
+    assert after["merge_px_host"] - before["merge_px_host"] == m
+    assert after["merge_px_card"] == before["merge_px_card"]
+    assert K.launch_counts().get("dual_merge", 0) == 0

@@ -418,3 +418,30 @@ def test_staging_on_the_cpu_is_plain_conversion():
     assert staging.pool().bytes == pinned
     assert staging.np_dtype(torch.complex64) == np.complex64
     assert staging.torch_dtype(np.int32) == torch.int32 == staging.torch_dtype(torch.int32)
+
+
+def test_prefault_touches_one_byte_a_page_on_a_worker():
+    """``prefault`` writes 0 into the first byte of each page of each array,
+    on another thread, and leaves the other bytes as they were."""
+    import mmap
+    import threading
+
+    page = mmap.PAGESIZE
+    a = np.full(5 * page + 3, 7, np.uint8)
+    b = np.full((3, 1000), 1.5, np.complex64)
+    seen = []
+    touch = staging._touch
+    try:
+        staging._touch = lambda arrays: (seen.append(threading.get_ident()), touch(arrays))
+        staging.prefault(a, b, np.empty(0, np.complex64)).result()
+    finally:
+        staging._touch = touch
+    assert seen and seen[0] != threading.get_ident()
+    first = np.zeros(a.size, bool)
+    first[::page] = True
+    assert (a[first] == 0).all() and (a[~first] == 7).all()
+    raw = b.reshape(-1).view(np.uint8)
+    assert (raw[::page] == 0).all() and raw.size > page
+    np.testing.assert_array_equal(np.delete(b.reshape(-1).view(np.uint8), np.s_[::page]),
+                                  np.delete(np.full((3, 1000), 1.5, np.complex64).reshape(-1)
+                                            .view(np.uint8), np.s_[::page]))

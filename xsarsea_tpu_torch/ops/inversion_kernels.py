@@ -30,6 +30,11 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   reciprocal a pixel, a residual correction an entry);
   :func:`crosspol_quotient` exposes that quotient so that it can be held
   against the true divide.
+* :func:`dual_merge` replaces no ``pallas_call``: the dual-pol merge, which
+  the JAX package runs in numpy on the host once the winds are back
+  (``xsarsea_tpu/windspeed/inversion.py:1652-1659``), run on each piece's
+  float32 winds before their copy out, in the pass that packs them into
+  complex64.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use and bound with
@@ -71,6 +76,7 @@ __all__ = [
     "EXACT_SLAB_ROWS",
     "GROUP_BLOCK",
     "KERNELS",
+    "MERGE_BELOW",
     "SLAB_BLOCK",
     "SLAB_MARGIN",
     "SLAB_ROWS",
@@ -86,6 +92,7 @@ __all__ = [
     "crosspol_argmin",
     "crosspol_quotient",
     "crosspol_quotient_sweep",
+    "dual_merge",
     "group_argmin",
     "group_argmin_streamed",
     "k1_staged_fits",
@@ -113,12 +120,15 @@ _PAD_LUT = 1e19  # padded LUT rows: cost overflows to +inf, never chosen
 _NAN_IDX = 2 ** 30  # K3's index for a pixel with a NaN cost in its slab
 _SMEM_OPTIN = 227 * 1024  # dynamic shared memory a block may opt in to on sm_90
 _PLAIN_ELEMENTS = 1 << 27  # costs a plain version materializes at once
+# the dual-pol merge takes the copol wind where either speed is below this
+# (m/s; reference windspeed.py:425-428)
+MERGE_BELOW = 5.0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # K5 and K6 (ops/experiment_kernels.py) build into the same library
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
             "crosspol_argmin.cu", "crosspol_quotient.cu", "slab_forms.cu",
-            "group_argmin_variants.cu", "group_argmin_variants_tc.cu")
+            "group_argmin_variants.cu", "group_argmin_variants_tc.cu", "dual_merge.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                "--threads", "0")  # the sources compile side by side
@@ -580,6 +590,20 @@ def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_bl
     return out
 
 
+def _below_merge_speed(re, im):
+    """The merge's decision for one wind: its float32 modulus, rounded once
+    from float64 (the squares exact, the sum and root correctly rounded), is
+    below ``MERGE_BELOW``. A NaN modulus is not below."""
+    re, im = re.double(), im.double()
+    return torch.sqrt(re * re + im * im).to(torch.float32) < MERGE_BELOW
+
+
+def _dual_merge_plain(co_re, co_im, du_re, du_im):
+    take_co = _below_merge_speed(co_re, co_im) | _below_merge_speed(du_re, du_im)
+    return (torch.complex(co_re, co_im),
+            torch.complex(torch.where(take_co, co_re, du_re), torch.where(take_co, co_im, du_im)))
+
+
 # ---------------------------------------------------------- build and bind
 
 _lib_lock = threading.Lock()
@@ -653,6 +677,8 @@ def _load():
             lib.xs_split_g4.restype = i
             lib.xs_chunk_lower_bounds.argtypes = [p] * 3 + [i] * 2 + [p]
             lib.xs_chunk_lower_bounds.restype = i
+            lib.xs_dual_merge.argtypes = [p] * 6 + [ctypes.c_longlong, p]
+            lib.xs_dual_merge.restype = i
             lib.xs_error_string.argtypes = [i]
             lib.xs_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -1042,6 +1068,38 @@ def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
     return n_bad, [tuple(pair) for pair in pairs]
 
 
+def dual_merge(co_re, co_im, du_re, du_im):
+    """The dual-pol merge of one piece's winds, packed into complex64.
+
+    co_re, co_im, du_re, du_im: the float32 planes of the copol and dual-pol
+    winds, one shape. Returns ``(wind_co, wind_dual)`` complex64 of that
+    shape: ``wind_co = co_re + i co_im``; ``wind_dual`` the copol wind where
+    either wind's float32 modulus, rounded once from float64, is below
+    ``MERGE_BELOW`` (5 m/s), else ``du_re + i du_im``. A NaN modulus is not
+    below. The values are the planes' own bits. On a CUDA tensor the
+    ``dual_merge`` kernel runs (csrc/dual_merge.cu) and counts its pixels
+    under ``merge_px_card``; on a CPU tensor its plain version.
+    """
+    planes = {"co_re": co_re, "co_im": co_im, "du_re": du_re, "du_im": du_im}
+    if co_re.device.type == "cpu":
+        return _dual_merge_plain(co_re, co_im, du_re, du_im)
+    if co_re.device.type != "cuda":
+        raise ValueError(f"dual_merge: unsupported device {co_re.device}")
+    _cuda_args(co_re.device, {name: (t, torch.float32, co_re.shape)
+                              for name, t in planes.items()})
+    wind_co = torch.empty(co_re.shape, dtype=torch.complex64, device=co_re.device)
+    wind_dual = torch.empty_like(wind_co)
+    lib = _load()
+    with torch.cuda.device(co_re.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_dual_merge(*(t.data_ptr() for t in planes.values()), wind_co.data_ptr(),
+                               wind_dual.data_ptr(), co_re.numel(), stream)
+    _check(lib, rc, "dual_merge")
+    _count("dual_merge")
+    spans.count("merge_px_card", co_re.numel())
+    return wind_co, wind_dual
+
+
 def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                  n_groups, block=GROUP_BLOCK, radii=None, swept=None,
                                  _prune=True, chunk_blocks=16):
@@ -1071,6 +1129,7 @@ def reset_launch_counts():
 def launch_counts():
     """Kernel launches per wrapper since the last reset (plain-version
     calls on the CPU do not count); K2/K3 at a chunk height other than 8
-    under ``<name>:chunk_rows=<rows>``, present once launched. The counters
+    under ``<name>:chunk_rows=<rows>`` and ``dual_merge``, which is not one
+    of :data:`KERNELS` (the argmin kernels), present once launched. The counters
     are the port's ``launch/<name>`` (:mod:`xsarsea_tpu_torch.utils.spans`)."""
     return {**dict.fromkeys(KERNELS, 0), **spans.counters(_LAUNCH)}

@@ -8,7 +8,9 @@
   names stay the same from run to run.
 * :func:`count` adds to a cumulative integer counter, always on, one dict
   behind a lock: ``pieces``, ``h2d_bytes``, ``d2h_bytes``,
-  ``pinned_new_bytes``, ``builds`` and the kernel launches of each wrapper
+  ``pinned_new_bytes``, ``builds``, the dual-pol pixels merged by the
+  ``dual_merge`` kernel (``merge_px_card``) and by numpy on the host
+  (``merge_px_host``), and the kernel launches of each wrapper
   (``launch/<wrapper>`` for the inversion's kernels,
   ``launch.experiment/<kernel>`` for the experiment kernels).
 * :class:`call` is the ``xs.call`` span of one entry-point call. While
@@ -35,7 +37,9 @@ The spans, nested as they run (the fused stages inside ``xs.compute``):
 ``xs.drain``       a piece's winds written into the outputs; ``xs.wait.copy``
                    waits for their copy from the card
 ``xs.cat``         the pieces' results joined on the device
-``xs.merge``       the dual-pol merge and the wrap into DimArrays
+``xs.merge``       the dual-pol merge where the host does it (a CPU or float64
+                   call; on the card the kernel merges inside ``xs.compute``)
+                   and the wrap into DimArrays
 =================  ============================================================
 """
 
@@ -51,7 +55,8 @@ __all__ = ["span", "count", "counters", "reset", "call", "start_recording", "sto
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
-_counters = dict.fromkeys(("pieces", "h2d_bytes", "d2h_bytes", "pinned_new_bytes", "builds"), 0)
+_counters = dict.fromkeys(("pieces", "h2d_bytes", "d2h_bytes", "pinned_new_bytes", "builds",
+                           "merge_px_card", "merge_px_host"), 0)
 # set by utils.trace: its profiler follows every thread, where the
 # profiler-enabled check reads false even on the thread that started it
 _all_threads = False

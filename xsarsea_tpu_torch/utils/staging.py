@@ -13,7 +13,9 @@ are reused across pieces and calls.
   current stream or on a side stream after the work already enqueued, and
   writes it into a numpy array once its event has fired;
 * :func:`to_host` is the whole trip, a few chunks in flight, into ``out`` or
-  a new array.
+  a new array;
+* :func:`prefault` faults the pages of fresh host arrays in on a worker
+  thread, so that a later copy into them only copies.
 
 On ``device="cpu"`` these are plain numpy/torch conversions: that is where
 the caller asked to compute, not a fallback, and no pinned memory is touched.
@@ -21,15 +23,18 @@ the caller asked to compute, not a fallback, and no pinned memory is touched.
 
 from __future__ import annotations
 
+import mmap
 import threading
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from xsarsea_tpu_torch.utils.spans import count, span
 
-__all__ = ["PinnedPool", "HostCopy", "pool", "to_device", "to_host", "np_dtype", "torch_dtype"]
+__all__ = ["PinnedPool", "HostCopy", "pool", "prefault", "to_device", "to_host", "np_dtype",
+           "torch_dtype"]
 
 _MIN_BUFFER = 1 << 16  # bytes; smaller host arrays are not worth a staging buffer
 _CHUNK_BYTES = 1 << 25  # to_host's chunk: two in flight bound its pinned memory
@@ -194,6 +199,28 @@ class HostCopy:
         _POOL.give(self._buf)
         self._buf = self._host = None
         return out
+
+
+_faulter = None
+_faulter_lock = threading.Lock()
+
+
+def _touch(arrays):
+    for a in arrays:
+        a.reshape(-1).view(np.uint8)[::mmap.PAGESIZE] = 0  # one byte a page
+
+
+def prefault(*arrays):
+    """Fault the pages of fresh C-contiguous host arrays in on a worker
+    thread while the caller goes on: one byte a page is written (0), the
+    rest is left as it was, for the caller to overwrite. A first write into
+    fresh memory takes a page fault a page, which costs more than the copy
+    itself. Returns the touch's future: wait on it before writing."""
+    global _faulter
+    with _faulter_lock:
+        if _faulter is None:
+            _faulter = ThreadPoolExecutor(max_workers=1, thread_name_prefix="xs-prefault")
+    return _faulter.submit(_touch, arrays)
 
 
 def to_host(t, out=None):

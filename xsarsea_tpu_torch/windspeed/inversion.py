@@ -749,7 +749,7 @@ def _pieces(n, piece):
 
 
 def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", device="cuda",
-                   device_output=False, piece_size=None, _overlap=True):
+                   device_output=False, piece_size=None, merge=False, _overlap=True):
     """Run the inversion over a piece source.
 
     A scene of several pieces streams through three overlapped lanes with at
@@ -766,6 +766,11 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
     keeps every piece's results on the device and returns complex tensors
     (then only the preparation overlaps, and nothing does when the inputs are
     tensors on the device already).
+
+    ``merge=True`` (float32 tables) returns ``(wind_co, wind_dual)`` with the
+    dual-pol merge done: each piece's winds go through the ``dual_merge``
+    kernel (:func:`~xsarsea_tpu_torch.ops.inversion_kernels.dual_merge`, its
+    plain version on the CPU), which packs and merges them in one pass.
     """
     device = torch.device(device)
     mode = _resolve_mode(mode, tables, device)
@@ -790,16 +795,26 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
         with span("xs.compute"):
             lanes.join(*prepared)
             co_re, co_im, du_re, du_im = fn(*prepared[0], dsig_t)
+            if merge:
+                return K.dual_merge(co_re, co_im, du_re, du_im)
             return torch.complex(co_re, co_im), torch.complex(du_re, du_im)
 
     parts = []
+    faulted = None
     if not device_output:
         ctype = np.complex128 if dtype == torch.float64 else np.complex64
         wind_co = np.empty(n, dtype=ctype)
         wind_dual = np.empty(n, dtype=ctype)
+        if device.type == "cuda" and not overlap:
+            # the outputs' pages fault in on a worker while the host prepares
+            # and the card computes, so that the drain on this thread only
+            # copies (the overlapped loop drains on a worker already)
+            faulted = staging.prefault(wind_co, wind_dual)
 
     def drain(copies, lo, hi):
         with span("xs.drain"):
+            if faulted is not None:
+                faulted.result()
             copies[0].into(wind_co[lo:hi])
             copies[1].into(wind_dual[lo:hi])
 
@@ -904,7 +919,10 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
     DimArray when an input is one, the caller's DataArray class when an
     input is DataArray-like. Dual-pol returns ``(wind_co, wind_dual)``
     where wind_dual takes copol where either speed is < 5 m/s
-    (windspeed.py:425-428).
+    (windspeed.py:425-428): on a CUDA device with float32 tables the card
+    merges each piece before its copy out (the ``dual_merge`` kernel; a
+    speed decides by its float32 modulus rounded once from float64), else
+    numpy merges on the host (``np.abs``).
 
     ``device``: where the inversion runs (default ``"cuda"``). ``dtype``:
     the tables' precision; default float32 on CUDA, float64 elsewhere.
@@ -925,12 +943,15 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
         source = _LazySource(shape, raw_inc, s0_co=raw_s0_co, s0_cr=raw_s0_cr,
                              dsig_cr=_raw_data(dsig_cr), anc=_raw_data(ancillary_wind),
                              device_db=device_db)
+        dual = sigma0_dual is not None
+        # the winds are float32 on the card: merged there, piece by piece
+        merge = dual and device.type == "cuda" and dtype == torch.float32
         wind_co, wind_dual = _invert_source(tables, source, dsig_co=dsig_co, mode=mode,
-                                            device=device, piece_size=piece_size)
+                                            device=device, piece_size=piece_size, merge=merge)
         with span("xs.merge"):
             template = next((v for v in (sigma0, inc) if isinstance(v, DimArray)), None)
             return _merge_and_wrap(wind_co.reshape(shape), wind_dual.reshape(shape), models,
-                                   template, dual=sigma0_dual is not None)
+                                   template, dual=dual, merged=merge)
 
 
 def _check_inputs(inc, sigma0, sigma0_dual, ancillary_wind, model):
@@ -966,9 +987,10 @@ def _check_inputs(inc, sigma0, sigma0_dual, ancillary_wind, model):
     return (None, models[0]), shape, raw_inc, None, raw_s0
 
 
-def _merge_and_wrap(wind_co, wind_dual, models, template, dual):
-    """The dual-pol merge, in place over ``wind_dual``, and each result
-    wrapped like ``template`` (a DimArray, or None for plain arrays)."""
+def _merge_and_wrap(wind_co, wind_dual, models, template, dual, merged):
+    """The dual-pol merge, in place over ``wind_dual`` unless the card
+    ``merged`` it already, and each result wrapped like ``template`` (a
+    DimArray, or None for plain arrays)."""
     def wrap(data, comment, model_names):
         if template is None:
             return data
@@ -988,13 +1010,15 @@ def _merge_and_wrap(wind_co, wind_dual, models, template, dual):
             res.attrs["units"] = "m/s"
         return res
 
-    # dual-pol merge (windspeed.py:425-428): copol where either speed < 5
-    # m/s, in place over wind_dual, in blocks
-    co_f, du_f = wind_co.reshape(-1), wind_dual.reshape(-1)
-    for lo in range(0, co_f.shape[0], 1 << 22):
-        co_c, du_c = co_f[lo:lo + (1 << 22)], du_f[lo:lo + (1 << 22)]
-        take_co = (np.abs(co_c) < 5) | (np.abs(du_c) < 5)
-        du_c[take_co] = co_c[take_co]
+    if not merged:
+        # dual-pol merge (windspeed.py:425-428): copol where either speed < 5
+        # m/s, in place over wind_dual, in blocks
+        co_f, du_f = wind_co.reshape(-1), wind_dual.reshape(-1)
+        count("merge_px_host", co_f.shape[0])
+        for lo in range(0, co_f.shape[0], 1 << 22):
+            co_c, du_c = co_f[lo:lo + (1 << 22)], du_f[lo:lo + (1 << 22)]
+            take_co = (np.abs(co_c) < K.MERGE_BELOW) | (np.abs(du_c) < K.MERGE_BELOW)
+            du_c[take_co] = co_c[take_co]
     co_out = wrap(wind_co, f"wind speed and direction inverted from model "
                            f"{models[0].name} ({models[0].pol})", models[0].name)
     dual_out = wrap(wind_dual, f"wind speed and direction inverted from model "
