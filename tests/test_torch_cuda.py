@@ -1237,3 +1237,47 @@ def test_invert_from_model_merges_on_card(cuda):
     assert after["merge_px_host"] - before["merge_px_host"] == m
     assert after["merge_px_card"] == before["merge_px_card"]
     assert K.launch_counts().get("dual_merge", 0) == 0
+
+
+def test_memmapped_scene_through_the_lanes_equals_serial_on_card(cuda, tmp_path):
+    """A scene of 2 x 2^22 + 1 px in ``.npy`` files memory-mapped back (the
+    dtypes of a disk-fed archive chain) through ``invert_from_model`` at the
+    default piece size: three pieces, the last of one pixel, read on the prep
+    worker, merged on the card piece by piece, drained into fresh outputs; the
+    serial loop's bits, every byte of the files read once."""
+    from xsarsea_tpu_torch.utils import spans
+    from xsarsea_tpu_torch.windspeed.inversion import _invert_source, _LazySource, _pieces
+
+    steps = dict(inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    n = 2 * (1 << 22) + 1
+    inc, s0_co, s0_cr, anc = _stream_scene(n, 24)
+    scene = {"inc": inc.astype(np.float32), "s0_co": s0_co.astype(np.float32),
+             "s0_cr": s0_cr.astype(np.float32),
+             "dsig_cr": np.random.default_rng(24).uniform(0.05, 0.2, n).astype(np.float32),
+             "anc": anc.astype(np.complex64)}
+    for k, a in scene.items():
+        np.save(tmp_path / f"{k}.npy", a)
+    del scene
+    files = {k: np.load(tmp_path / f"{k}.npy", mmap_mode="r")
+             for k in ("inc", "s0_co", "s0_cr", "dsig_cr", "anc")}
+    assert len(_pieces(n, 1 << 22)) == 3
+
+    K.reset_launch_counts()
+    before = spans.counters()
+    co, dual = invert_from_model(files["inc"], files["s0_co"], files["s0_cr"],
+                                 ancillary_wind=files["anc"], dsig_cr=files["dsig_cr"],
+                                 model=("gmf_cmod5n", "gmf_s1_v2"), dtype=torch.float32,
+                                 mode="fused", device=cuda, **steps)
+    after = spans.counters()
+    assert K.launch_counts()["dual_merge"] == 3
+    assert after["pieces"] - before["pieces"] == 3
+    assert after["merge_px_card"] - before["merge_px_card"] == n
+    assert after["merge_px_host"] == before["merge_px_host"]
+    assert after["read_bytes"] - before["read_bytes"] == 24 * n
+
+    tables = prepare_tables("gmf_cmod5n", "gmf_s1_v2", dtype=torch.float32, **steps)
+    src = _LazySource((n,), files["inc"], s0_co=files["s0_co"], s0_cr=files["s0_cr"],
+                      dsig_cr=files["dsig_cr"], anc=files["anc"])
+    serial = _invert_source(tables, src, mode="fused", device=cuda, merge=True, _overlap=False)
+    assert _same_bits(co, serial[0]) and _same_bits(dual, serial[1])
+    assert np.isfinite(co).mean() > 0.99

@@ -46,7 +46,7 @@ PARENT = {"xs.validate": "xs.call", "xs.tables": "xs.call", "xs.build": "xs.tabl
           "xs.coarse": "xs.compute", "xs.rebucket": "xs.compute", "xs.refine": "xs.compute",
           "xs.post": "xs.compute", "xs.wait.prep": "xs.call", "xs.wait.drain": "xs.call",
           "xs.drain": "xs.call", "xs.cat": "xs.call", "xs.merge": "xs.call",
-          "xs.pin": "xs.prep", "xs.wait.copy": "xs.drain"}
+          "xs.pin": "xs.prep", "xs.read": "xs.prep", "xs.wait.copy": "xs.drain"}
 # the spans of the lanes' workers, inside the call's time but on their own threads
 LANES = {"xs.prep", "xs.pin", "xs.drain", "xs.wait.copy"}
 
@@ -159,8 +159,8 @@ def test_default_profiler_sees_the_calling_threads_spans():
 def test_dual_pol_invert_from_model_spans(tmp_path):
     _, doc = _trace_events(tmp_path, _from_model)
     seen = _check_nesting(_xs_events(doc["traceEvents"]))
-    assert {"xs.call", "xs.validate", "xs.tables", "xs.prep", "xs.compute", "xs.coarse",
-            "xs.refine", "xs.drain", "xs.merge"} <= seen
+    assert {"xs.call", "xs.validate", "xs.tables", "xs.prep", "xs.read", "xs.compute",
+            "xs.coarse", "xs.refine", "xs.drain", "xs.merge"} <= seen
 
 
 def test_pin_and_copy_wait_spans(monkeypatch):

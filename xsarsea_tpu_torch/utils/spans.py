@@ -7,7 +7,9 @@
   ``xs.prep``, ...): nothing about the call goes into a name, so the trace's
   names stay the same from run to run.
 * :func:`count` adds to a cumulative integer counter, always on, one dict
-  behind a lock: ``pieces``, ``h2d_bytes``, ``d2h_bytes``,
+  behind a lock: ``pieces``, ``read_bytes`` (a piece's bytes of the
+  host source arrays, memory-mapped files included, as handed to the cast;
+  an array broadcast to the scene adds none), ``h2d_bytes``, ``d2h_bytes``,
   ``pinned_new_bytes``, ``builds``, the dual-pol pixels merged by the
   ``dual_merge`` kernel (``merge_px_card``) and by numpy on the host
   (``merge_px_host``), and the kernel launches of each wrapper
@@ -29,6 +31,10 @@ The spans, nested as they run (the fused stages inside ``xs.compute``):
 ``xs.prep``        one piece's inputs: host slicing and dB, the casts into
                    pinned buffers, the copies issued (on the prep worker when
                    the lanes overlap); ``xs.pin`` pins a new buffer
+``xs.read``        inside ``xs.prep``: one source array's rows of the piece
+                   taken (``_flat_slice``: the rows of a chunked or broadcast
+                   array materialized), before any cast; a memory-mapped
+                   file's view is read in the cast that follows
 ``xs.compute``     one piece's inversion: ``xs.bucket``, ``xs.coarse`` (K1),
                    ``xs.rebucket``, ``xs.refine`` (K2, or K3 and K4),
                    ``xs.post`` in the fused modes
@@ -55,8 +61,8 @@ __all__ = ["span", "count", "counters", "reset", "call", "start_recording", "sto
 
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
-_counters = dict.fromkeys(("pieces", "h2d_bytes", "d2h_bytes", "pinned_new_bytes", "builds",
-                           "merge_px_card", "merge_px_host"), 0)
+_counters = dict.fromkeys(("pieces", "read_bytes", "h2d_bytes", "d2h_bytes", "pinned_new_bytes",
+                           "builds", "merge_px_card", "merge_px_host"), 0)
 # set by utils.trace: its profiler follows every thread, where the
 # profiler-enabled check reads false even on the thread that started it
 _all_threads = False

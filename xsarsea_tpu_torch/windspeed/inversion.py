@@ -573,9 +573,11 @@ def _get_invert_fn(tables, chunk_size, mode, device):
 def _flat_slice(arr, shape, lo, hi):
     """Flat row-major [lo, hi) of ``arr`` as a 1-D array or tensor.
 
-    Contiguous arrays and tensors are sliced as views; anything else with
-    numpy-style first-axis slicing (memmaps, broadcast views) goes through
-    the rows covering [lo, hi), so only O(piece) elements are materialized.
+    Contiguous arrays and tensors are sliced as views (a C-contiguous
+    ``np.memmap`` too: its pages are read where the view is read); anything
+    else with numpy-style first-axis slicing (chunked stores, broadcast
+    views) goes through the rows covering [lo, hi), so only O(piece)
+    elements are materialized.
     """
     if isinstance(arr, torch.Tensor):
         return arr.reshape(-1)[lo:hi]
@@ -657,8 +659,23 @@ class _LazySource:
                 raise ValueError("broadcastable incidence requires a sigma0 stream")
             self._inc_vec = np.ascontiguousarray(np.asarray(inc, dtype=np.float64).reshape(-1))
 
+    def _read(self, arr, lo, hi):
+        """Flat [lo, hi) of a source array: the span ``xs.read`` around
+        ``_flat_slice`` and the rows it materializes (a view of a memory-mapped
+        file reads its pages later, in the cast), and the counter
+        ``read_bytes``: the piece's bytes of a host array of the scene's own
+        values, not of one broadcast to the scene (a stride of 0)."""
+        with span("xs.read"):
+            x = _flat_slice(arr, self.shape, lo, hi)
+        on_host = not isinstance(x, torch.Tensor) or x.device.type == "cpu"
+        strides = arr.stride() if isinstance(arr, torch.Tensor) else getattr(arr, "strides", ())
+        if on_host and not any(s == 0 and n > 1 for s, n in zip(strides, np.shape(arr))):
+            count("read_bytes", x.nbytes if isinstance(x, np.ndarray)
+                  else x.numel() * x.element_size())
+        return x
+
     def _db(self, arr, lo, hi, device, dtype):
-        x = _flat_slice(arr, self.shape, lo, hi)
+        x = self._read(arr, lo, hi)
         if self.device_db:  # linear to the device, log10 there
             x = staging.to_device(x, device, dtype)
             return 10.0 * torch.log10(x + 1e-15)
@@ -672,7 +689,7 @@ class _LazySource:
     def streams(self, lo, hi, device, dtype):
         m = hi - lo
         if self.inc_mode == "full":
-            inc = staging.to_device(_flat_slice(self.inc, self.shape, lo, hi), device, dtype)
+            inc = staging.to_device(self._read(self.inc, lo, hi), device, dtype)
         else:
             vec = staging.to_device(self._inc_vec, device, dtype)
             idx = lo + torch.arange(m, device=device)
@@ -687,12 +704,12 @@ class _LazySource:
             d = self.dsig_cr
             if tuple(np.shape(d)) != self.shape:
                 d = np.broadcast_to(np.asarray(d), self.shape)
-            dsig = staging.to_device(_flat_slice(d, self.shape, lo, hi), device, dtype)
+            dsig = staging.to_device(self._read(d, lo, hi), device, dtype)
         if self.anc is None:
             anc_re = anc_im = nanv
         else:
             anc_re, anc_im = (staging.to_device(part, device, dtype) for part in
-                              _real_imag(_flat_slice(self.anc, self.shape, lo, hi)))
+                              _real_imag(self._read(self.anc, lo, hi)))
         return [inc, s0_co, s0_cr, dsig, anc_re, anc_im]
 
 
