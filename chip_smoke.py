@@ -357,12 +357,16 @@ def feats_of(name, args):
     return args[KERNELS[name][2]]
 
 
-def sweep_note(torch, K, name, args):
+def sweep_note(torch, K, name, args, kwargs):
     """The work a kernel's sweep is given: live pixels (those whose first
     feature, s0, is not NaN), slots of the blocks it runs (for K2/K3 those
     with vmask 1), and slots it sweeps (32-pixel groups holding a live
-    pixel)."""
+    pixel). A call that reads through the bucket permutation (``index``)
+    has its slots' s0 read through it here."""
     s0 = feats_of(name, args)[:, 0]
+    if kwargs.get("index") is not None:
+        index = kwargs["index"]
+        s0 = torch.where(index >= 0, s0[index.clamp(min=0)], float("nan"))
     if name in ("slab_refine_fused", "slab_refine"):
         s0 = s0.reshape(-1, K.SLAB_BLOCK)
         s0 = s0[args[-1].to(torch.bool)]
@@ -674,7 +678,7 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
             f"tail's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
             f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms per call, bound "
             f"{timed['bound_ms']:.3f} ms ({timed['bound_by']})"
-            f"{sweep_note(torch, K, name, args)}")
+            f"{sweep_note(torch, K, name, args, kwargs)}")
 
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 7")
     return tables, s0_cr_db
@@ -1432,7 +1436,7 @@ def time_and_hold(torch, K, name, args, kwargs, entry, phase):
     log(f"{phase} {entry['name']}: bit-equal to its plain version on {ref.numel()} outputs of "
         f"one piece (feats {tuple(feats_of(name, args).shape)}); kernel {entry['ms']:.3f} ms, "
         f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
-        f"({entry['bound_by']}){sweep_note(torch, K, name, args)}")
+        f"({entry['bound_by']}){sweep_note(torch, K, name, args, kwargs)}")
 
 
 def swept_by_block(torch, K, args, kwargs, prune):
@@ -2162,7 +2166,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
             f"path's shapes (feats {tuple(feats_of(name, args).shape)}); kernel "
             f"{report[name]['ms']:.3f} ms, plain {report[name]['plain_ms']:.3f} ms per call, "
             f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})"
-            f"{sweep_note(torch, K, name, args)}")
+            f"{sweep_note(torch, K, name, args, kwargs)}")
     hold_merge(torch, K, merge_calls["dual_merge"][0], report["dual_merge"], "phase 5")
     done("phase 5")
 

@@ -1281,3 +1281,92 @@ def test_memmapped_scene_through_the_lanes_equals_serial_on_card(cuda, tmp_path)
     serial = _invert_source(tables, src, mode="fused", device=cuda, merge=True, _overlap=False)
     assert _same_bits(co, serial[0]) and _same_bits(dual, serial[1])
     assert np.isfinite(co).mean() > 0.99
+
+
+@pytest.mark.parametrize("name", ["group_argmin", "group_argmin_streamed", "slab_refine_fused",
+                                  "slab_refine", "crosspol_argmin"])
+def test_indexed_kernel_bit_equal_to_the_kernel_on_the_copied_rows(cuda, name):
+    """K1-K4 reading their rows through the bucket permutation (``index=``)
+    against the same kernel on the slot-order copy the fused path used to
+    make, its results scattered back (``_bucket_copies``), at 2^22 + 57 px:
+    a partial last block, padding slots, a coast of NaN s0; K1 reads an
+    8-float table as 4."""
+    from _bucket_copies import kernel_case, run_both, same_bits
+
+    n = (1 << 22) + 57
+    args, kwargs = kernel_case(name, n, cuda, seed=22)
+    K.reset_launch_counts()
+    got, ref = run_both(name, args, kwargs)
+    torch.cuda.synchronize()
+    assert same_bits(got, ref)
+    assert K.launch_counts()[name] == 2
+    if name not in ("group_argmin", "group_argmin_streamed"):
+        assert got.shape[-1] == n
+
+
+def test_indexed_rows_table_checked_on_card(cuda):
+    """The indexed forms refuse a rows table too narrow, one K1 and K4 cannot
+    read as 16-byte rows, an index of another dtype or length, and a K2/K3
+    chunk height their indexed form is not built for."""
+    from _bucket_copies import kernel_case
+
+    args, kw = kernel_case("group_argmin", 1000, cuda)
+    rows, perm = args[4], kw["index"]
+    with pytest.raises(ValueError, match="rows table"):
+        K.group_argmin(*args[:4], rows[:, :2].contiguous(), *args[5:], index=perm)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.group_argmin(*args[:4], rows[:, :6].contiguous(), *args[5:], index=perm)
+    with pytest.raises(ValueError, match="index"):
+        K.group_argmin(*args[:4], rows, *args[5:], index=perm.to(torch.int32))
+    with pytest.raises(ValueError, match="index"):
+        K.group_argmin(*args[:4], rows, *args[5:], index=perm[1:])
+    args, kw = kernel_case("slab_refine", 1000, cuda)
+    with pytest.raises(ValueError, match="chunk_rows=8"):
+        K.slab_refine(*args, **kw, chunk_rows=16)
+    args, kw = kernel_case("crosspol_argmin", 1000, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.crosspol_argmin(*args[:2], torch.zeros((1000, 5), device=cuda), args[3], **kw)
+
+
+@pytest.mark.parametrize("cell", ["s1_iw_resident", "lut_scansar_resident"])
+def test_fused_call_reads_through_the_permutation_on_card(cuda, cell, tmp_path, monkeypatch):
+    """A coastal scene of the benchmark cell (its configuration's tables, its
+    traffic's generator; ``s1_ew_resident`` shares the IW cell's
+    configuration at 10^8 px) inverted on the card as the cell calls it: the
+    winds equal bit for bit those of the same call with K1-K4 in their
+    copying forms (the fused path before they read through the bucket
+    permutation), and the call's record shows no copy (``rows_gathered`` 0)
+    and every slot launched read through an index (``perm_rows_read``)."""
+    from pathlib import Path
+
+    from _bucket_copies import copying_kernels, same_bits
+    from benchmark import system, traffic
+    from benchmark.entries import resident
+    from benchmark.harness import Cell
+    from xsarsea_tpu_torch.utils import trace
+
+    root = Path(__file__).resolve().parents[1]
+    c = Cell(root, cell)
+    program = system.build(c.config, root, cuda)
+    gen = traffic.generator(20, cuda)
+    plan = next(p for p in traffic.scene_plan(c.traffic, gen) if p["land"] > 0)
+    placed = resident.place(traffic.make_scene(c.traffic, c.config, gen, plan, cuda))
+    assert torch.isnan(placed["s0_co_db"]).any()
+    resident.invert(program, placed)  # build and warm up
+
+    slots = []
+    for name in K.KERNELS:
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _f=fn, **kw: slots.append(kw["index"].numel())
+                            or _f(*a, **kw))
+    with trace(tmp_path / "trace") as tr:
+        co, dual = resident.invert(program, placed)
+    monkeypatch.undo()
+    rec, = tr.calls
+    assert rec["rows_gathered"] == 0
+    assert rec["perm_rows_read"] == sum(slots) > placed["inc"].numel()
+    with monkeypatch.context() as m:
+        copying_kernels(m)
+        ref_co, ref_dual = resident.invert(program, placed)
+    assert same_bits(co, ref_co) and same_bits(dual, ref_dual)
+    assert torch.isfinite(co).float().mean() > 0.5

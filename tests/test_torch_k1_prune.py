@@ -302,7 +302,7 @@ def test_fused_exact_blocks_sorted_by_prior_radius(monkeypatch):
 
     def recorder(fn):
         def record(*a, **k):
-            seen["k1"] = a
+            seen["k1"] = a, k
             return fn(*a, **k)
         return record
 
@@ -311,7 +311,9 @@ def test_fused_exact_blocks_sorted_by_prior_radius(monkeypatch):
     for mode in ("fused_exact", "fused"):
         seen.clear()
         inv.invert_pixels(t, inc, s0, s0 - 10, np.full(n, 0.1), anc, mode=mode, device="cpu")
-        feats, bob = seen["k1"][4], seen["k1"][5]
+        (_, _, _, _, rows, bob, _), kw = seen["k1"]
+        # the blocks' features: the pixel table read through the bucket permutation
+        feats = K._slot_rows(rows, kw["index"], 4)
         rho = torch.hypot(feats[:, 1], feats[:, 2]).reshape(bob.shape[0], -1)
         live = ~torch.isnan(feats[:, 0]).reshape(bob.shape[0], -1)
         ordered = all(bool((torch.diff(torch.cat([rho[bob == b][live[bob == b]]])) >= 0).all())

@@ -10,7 +10,9 @@
 * with no profiler, ``span()`` is one shared null context and no
   ``record_function`` is entered; no call record is kept;
 * inside ``utils.trace``, one record per call, whose pieces and launches are
-  the counters' changes, written into the trace file too;
+  the counters' changes, written into the trace file too; its
+  ``perm_rows_read`` the slots K1-K4 read through the bucket permutation,
+  its ``rows_gathered`` 0 (no bucket-ordered copy on the fused path);
 * the kernel modules' ``launch_counts()`` and ``reset_launch_counts()`` keep
   their results on the shared counters, which lose no update under threads;
 * ``timing`` reads nothing when its log is off;
@@ -199,10 +201,17 @@ def test_no_profiler_enters_no_record_function_and_keeps_no_record(tables, monke
     assert spans.stop_recording() == []
 
 
-def test_trace_records_one_per_call(tables, tmp_path):
+def test_trace_records_one_per_call(tables, tmp_path, monkeypatch):
     piece = 250
+    slots = []  # the slots of each K1-K4 launch, read through the bucket permutation
+    for name in K.KERNELS:
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _f=fn, **kw: slots.append(kw["index"].numel())
+                            or _f(*a, **kw))
+    split = []
     before = K.launch_counts()
-    tr, doc = _trace_events(tmp_path, lambda: (_pixels(tables, piece), _from_model()))
+    tr, doc = _trace_events(tmp_path, lambda: (_pixels(tables, piece), split.append(len(slots)),
+                                               _from_model()))
     after = K.launch_counts()
     assert [c["entry"] for c in tr.calls] == ["invert_pixels", "invert_from_model"]
     pix, model = tr.calls
@@ -217,6 +226,9 @@ def test_trace_records_one_per_call(tables, tmp_path):
         assert rec["seconds"] > 0 and rec["alloc_segments"] == 0
         assert rec["h2d_bytes"] == rec["d2h_bytes"] == 0  # no card: no copy counted
         assert rec["pinned_bytes"] == staging.pool().bytes
+        assert rec["rows_gathered"] == 0  # the fused path makes no bucket-ordered copy
+    assert pix["perm_rows_read"] == sum(slots[:split[0]]) > 0
+    assert model["perm_rows_read"] == sum(slots[split[0]:]) > 0
     assert doc["xs_calls"] == tr.calls
     assert spans._calls is None  # recording ends with the trace
 

@@ -105,6 +105,59 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
+// A block's feature rows as the kernels read them. In slot order (the
+// default), slot p's row starts at rows + p * stride: a bucket-ordered copy
+// made beforehand. With kIndexed the kernel reads through the bucket
+// permutation instead: slot p's row is row index[p] of the pixel table rows,
+// and a slot whose index is negative (padding) reads NaN features. rows, and
+// index in the indexed form, point at the block's first slot and at the
+// table's first row; a row holds stride floats, of which the kernel reads the
+// first few (K1 the first 4 of the fused tail's 8).
+template <bool kIndexed>
+struct Rows {
+  const float* __restrict__ rows;
+  int stride;
+  const long long* __restrict__ index = nullptr;  // kIndexed only
+
+  // The pixel of slot p (negative for padding); slot order: p itself.
+  __device__ __forceinline__ long long pixel(int p) const {
+    if constexpr (kIndexed) {
+      return index[p];
+    } else {
+      return p;
+    }
+  }
+
+  // Feature j of slot p.
+  __device__ __forceinline__ float at(int p, int j) const {
+    const long long i = pixel(p);
+    if constexpr (kIndexed) {
+      if (i < 0) return CUDART_NAN_F;
+    }
+    return rows[i * stride + j];
+  }
+
+  // Features 0-3 of slot p, one load each.
+  __device__ __forceinline__ float4 head(int p) const {
+    const long long i = pixel(p);
+    if constexpr (kIndexed) {
+      if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+    }
+    const float* r = rows + i * stride;
+    return make_float4(r[0], r[1], r[2], r[3]);
+  }
+
+  // Features 0-3 of slot p as one 16-byte load (rows 16-byte aligned, stride
+  // a multiple of 4).
+  __device__ __forceinline__ float4 head4(int p) const {
+    const long long i = pixel(p);
+    if constexpr (kIndexed) {
+      if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+    }
+    return *reinterpret_cast<const float4*>(rows + i * stride);
+  }
+};
+
 // The slab sweep of K2, K3 and K5 on Hopper.
 //
 // A CUDA block holds one 128-pixel (band, group) bucket block and kWarps = 4
@@ -280,9 +333,9 @@ struct Chains {
 // each warp's partial (minimum, index) per pixel in smem: part_best[w *
 // kPixels + p], part_idx likewise (p = 32 * group + lane). Every thread of
 // the block calls it with the same G.
-template <int G, Form F, int kChunk>
-__device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict__ feats_b,
-                             int feat_stride, unsigned live) {
+template <int G, Form F, int kChunk, bool kIndexed>
+__device__ void sweep_groups(float* smem, const Slab& s, const Rows<kIndexed>& feats,
+                             unsigned live) {
   static_assert(kChunk % kWarps == 0, "every warp keeps its rows r = w mod 4 in every chunk");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -292,11 +345,11 @@ __device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict
   for (int k = 0; k < G; ++k) {
     grp[k] = __ffs(live) - 1;
     live &= live - 1;
-    const float* f = feats_b + static_cast<size_t>(32 * grp[k] + lane) * feat_stride;
-    ch.s0[k] = f[0];
-    ch.ma[k] = f[1];
-    ch.mz[k] = f[2];
-    ch.inv[k] = F == kDirect ? f[3] : 1.0f;
+    const float4 f = feats.head(32 * grp[k] + lane);
+    ch.s0[k] = f.x;
+    ch.ma[k] = f.y;
+    ch.mz[k] = f.z;
+    ch.inv[k] = F == kDirect ? f.w : 1.0f;
     ch.best[k] = CUDART_INF_F;
     ch.idx[k] = -1;
   }
@@ -352,27 +405,27 @@ __device__ void sweep_groups(float* smem, const Slab& s, const float* __restrict
 }
 
 // The first minimum of pixel threadIdx.x of the block over its slab in cost
-// form F. feats_b points at the block's first pixel's features (s0, ma/2,
-// mz/2, 1/dsig for the direct form; s0 * inv_dsig, ma/2, mz/2, 1 for the
-// other two; then feat_stride - 4 others). Needs kThreads threads and
-// smem_bytes<F, kChunk>(s.n_phi, s.n_rows) of 16-byte aligned dynamic
+// form F. feats: the block's feature rows (s0, ma/2, mz/2, 1/dsig for the
+// direct form; s0 * inv_dsig, ma/2, mz/2, 1 for the other two; then others),
+// in slot order or through the bucket permutation. Needs kThreads threads
+// and smem_bytes<F, kChunk>(s.n_phi, s.n_rows) of 16-byte aligned dynamic
 // shared memory.
-template <Form F = kDirect, int kChunk = kChunkRows>
+template <Form F = kDirect, int kChunk = kChunkRows, bool kIndexed = false>
 __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
-                                            const float* __restrict__ feats_b, int feat_stride) {
+                                            const Rows<kIndexed>& feats) {
   const int lane = threadIdx.x & 31;
   // groups with a pixel whose s0 is not NaN; every warp finds the same ones
   unsigned live = 0;
 #pragma unroll
   for (int g = 0; g < kGroups; ++g) {
-    const float s0 = feats_b[static_cast<size_t>(32 * g + lane) * feat_stride];
+    const float s0 = feats.at(32 * g + lane, 0);
     live |= static_cast<unsigned>(__any_sync(0xffffffffu, s0 == s0)) << g;
   }
   switch (__popc(live)) {
-    case 1: sweep_groups<1, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
-    case 2: sweep_groups<2, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
-    case 3: sweep_groups<3, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
-    case 4: sweep_groups<4, F, kChunk>(smem, s, feats_b, feat_stride, live); break;
+    case 1: sweep_groups<1, F, kChunk>(smem, s, feats, live); break;
+    case 2: sweep_groups<2, F, kChunk>(smem, s, feats, live); break;
+    case 3: sweep_groups<3, F, kChunk>(smem, s, feats, live); break;
+    case 4: sweep_groups<4, F, kChunk>(smem, s, feats, live); break;
     default: break;  // no live group: nothing to sweep
   }
   __syncthreads();
@@ -399,6 +452,14 @@ __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
     }
   }
   return m;
+}
+
+// The same over features in slot order: feats_b points at the block's first
+// pixel's row of feat_stride floats.
+template <Form F = kDirect, int kChunk = kChunkRows>
+__device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
+                                            const float* __restrict__ feats_b, int feat_stride) {
+  return sweep<F, kChunk>(smem, s, Rows<false>{feats_b, feat_stride});
 }
 
 }  // namespace slab

@@ -29,6 +29,17 @@
 // was not swept included (dual-pol data can miss copol alone); with a NaN
 // crosspol sigma0 every crosspol cost is NaN and it gives 0.
 //
+// Features and results take one of two layouts, a template parameter of the
+// kernel. In slot order, feats holds a bucket-ordered copy of the pixels'
+// rows and out the block's (wspd_co, phi, wspd_cr, 0) rows, slot by slot. The
+// indexed form (the inversion's path) reads each slot's row of the pixel
+// table through the bucket permutation (index: slot -> pixel, -1 for a
+// padding slot, whose features are NaN) and writes wspd_co, phi and wspd_cr
+// straight into pixel order, out[k * n_px + pixel]; padding slots and
+// all-padding blocks write nothing. So neither copy exists: not the rows
+// gathered into bucket order before the kernel, nor the results scattered
+// back after it.
+//
 // Bound on the H100: FP32 issue. Per pixel (48-row slab) 48 x 181 = 8,688 entries x 10
 // counted FP32 operations (see slab_refine.cu), then 771 crosspol entries x 8.
 // Device-memory traffic is ~32 B/px in and 16 B/px out.
@@ -41,24 +52,26 @@ namespace {
 using xs::slab::kPixels;
 using xs::slab::kThreads;
 
-template <int kChunk>
+template <int kChunk, bool kIndexed>
 __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
     const float* __restrict__ lut_pad, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const float* __restrict__ w_pad,
     const float* __restrict__ co_phir, const float* __restrict__ cr_lut,
     const float* __restrict__ cr_whalf, const float* __restrict__ feats,
-    const int* __restrict__ sband, const int* __restrict__ srow0,
-    const int* __restrict__ vmask, float* __restrict__ out, int wp_rows, int n_phi, int n_rows,
-    int n_cr, int has_cr) {
+    const long long* __restrict__ index, int stride, const int* __restrict__ sband,
+    const int* __restrict__ srow0, const int* __restrict__ vmask, float* __restrict__ out,
+    long long n_px, int wp_rows, int n_phi, int n_rows, int n_cr, int has_cr) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   float* out_b = out + static_cast<size_t>(b) * 4 * kPixels;
   if (vmask[b] == 0) {
-    out_b[t] = 0.0f;
-    out_b[kPixels + t] = 0.0f;
-    out_b[2 * kPixels + t] = 0.0f;
-    out_b[3 * kPixels + t] = 0.0f;
+    if constexpr (!kIndexed) {
+      out_b[t] = 0.0f;
+      out_b[kPixels + t] = 0.0f;
+      out_b[2 * kPixels + t] = 0.0f;
+      out_b[3 * kPixels + t] = 0.0f;
+    }
     return;
   }
   const int band = sband[b];
@@ -67,75 +80,103 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
   const xs::slab::Slab slab{lut_pad + static_cast<size_t>(band) * wp_rows * n_phi + row0,
                             u_half + row0, v_half + row0, n_rows, n_phi};
   // feats rows: s0, ma/2, mz/2, 1/dsig, s0_cr, dsig_cr, 0, 0
-  const float* feats_b = feats + static_cast<size_t>(b) * kPixels * 8;
-  const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(smem, slab, feats_b, 8);
+  const size_t slot0 = static_cast<size_t>(b) * kPixels;
+  const xs::Rows<kIndexed> f = kIndexed ? xs::Rows<kIndexed>{feats, stride, index + slot0}
+                                        : xs::Rows<kIndexed>{feats + slot0 * 8, 8};
+  const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(smem, slab, f);
   const bool hit = !m.poisoned && m.row >= 0;
   const float wspd_co = hit ? w_pad[r0 + m.row] : 0.0f;
   const float phi = m.poisoned ? 0.0f : co_phir[m.col];
 
-  const float* f = feats_b + static_cast<size_t>(t) * 8;
   float wspd_cr = 0.0f;
   if (has_cr) {
     __syncthreads();  // every thread has read the sweep's partial minima
     xs::crosspol::stage(smem, cr_lut + static_cast<size_t>(band) * n_cr, cr_whalf, n_cr,
                         kThreads);
     __syncthreads();
-    if (f[4] == f[4]) {
-      const float s0 = f[0];
+    const float s0_cr = f.at(t, 4);
+    if (s0_cr == s0_cr) {
+      const float s0 = f.at(t, 0);
       const float has_co = (s0 != s0) ? 0.0f : 1.0f;
       const float wco_half = __fmul_rn(hit ? __fmul_rn(wspd_co, 0.5f) : 0.0f, has_co);
-      const float4 fc[1] = {make_float4(f[4], f[5], wco_half, has_co)};
+      const float4 fc[1] = {make_float4(s0_cr, f.at(t, 5), wco_half, has_co)};
       float speed[1];
       xs::crosspol::argmin<1>(smem, smem + xs::crosspol::row_stride(n_cr), n_cr, fc, speed);
       wspd_cr = speed[0];
     }
   }
-  out_b[t] = wspd_co;
-  out_b[kPixels + t] = phi;
-  out_b[2 * kPixels + t] = wspd_cr;
-  out_b[3 * kPixels + t] = 0.0f;
+  if constexpr (kIndexed) {
+    const long long px = f.pixel(t);
+    if (px >= 0) {
+      out[px] = wspd_co;
+      out[n_px + px] = phi;
+      out[2 * n_px + px] = wspd_cr;
+    }
+  } else {
+    out_b[t] = wspd_co;
+    out_b[kPixels + t] = phi;
+    out_b[2 * kPixels + t] = wspd_cr;
+    out_b[3 * kPixels + t] = 0.0f;
+  }
 }
 
-template <int kChunk>
+template <int kChunk, bool kIndexed>
 int launch(const float* lut_pad, const float* u_half, const float* v_half, const float* w_pad,
            const float* co_phir, const float* cr_lut, const float* cr_whalf, const float* feats,
-           const int* sband, const int* srow0, const int* vmask, float* out, int n_blocks,
-           int wp_rows, int n_phi, int n_rows, int n_cr, int has_cr, cudaStream_t stream) {
+           const long long* index, int stride, const int* sband, const int* srow0,
+           const int* vmask, float* out, long long n_px, int n_blocks, int wp_rows, int n_phi,
+           int n_rows, int n_cr, int has_cr, cudaStream_t stream) {
   size_t smem = xs::slab::smem_bytes<xs::kDirect, kChunk>(n_phi, n_rows);
   if (has_cr) smem = std::max(smem, xs::crosspol::smem_bytes(n_cr));  // the staged row
-  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel<kChunk>, smem);
+  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel<kChunk, kIndexed>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  slab_refine_fused_kernel<kChunk><<<n_blocks, kThreads, smem, stream>>>(
-      lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband, srow0, vmask,
-      out, wp_rows, n_phi, n_rows, n_cr, has_cr);
+  slab_refine_fused_kernel<kChunk, kIndexed><<<n_blocks, kThreads, smem, stream>>>(
+      lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, index, stride, sband,
+      srow0, vmask, out, n_px, wp_rows, n_phi, n_rows, n_cr, has_cr);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// index: nullptr for features and results in slot order (feats rows of 8
+// floats), or the slot -> pixel permutation of the indexed form (feats the
+// pixel table, rows of stride >= 6 floats; out (3, n_px) in pixel order),
+// which is compiled at the paths' chunk height of 8 rows only.
 extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
                                     const float* v_half, const float* w_pad,
                                     const float* co_phir, const float* cr_lut,
-                                    const float* cr_whalf, const float* feats, const int* sband,
+                                    const float* cr_whalf, const float* feats,
+                                    const long long* index, int stride, const int* sband,
                                     const int* srow0, const int* vmask, float* out,
-                                    int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
-                                    int n_cr, int has_cr, int chunk_rows, void* stream) {
+                                    long long n_px, int n_blocks, int block, int wp_rows,
+                                    int n_phi, int n_rows, int n_cr, int has_cr, int chunk_rows,
+                                    void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
+  if (index != nullptr && chunk_rows != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (chunk_rows) {
     case 8:
-      return launch<8>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                       srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+      if (index != nullptr) {
+        return launch<8, true>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
+                               index, stride, sband, srow0, vmask, out, n_px, n_blocks, wp_rows,
+                               n_phi, n_rows, n_cr, has_cr, s);
+      }
+      return launch<8, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
+                              nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
+                              n_rows, n_cr, has_cr, s);
     case 16:
-      return launch<16>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+      return launch<16, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
+                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
+                               n_rows, n_cr, has_cr, s);
     case 24:
-      return launch<24>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+      return launch<24, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
+                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
+                               n_rows, n_cr, has_cr, s);
     case 48:
-      return launch<48>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                        srow0, vmask, out, n_blocks, wp_rows, n_phi, n_rows, n_cr, has_cr, s);
+      return launch<48, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
+                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
+                               n_rows, n_cr, has_cr, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

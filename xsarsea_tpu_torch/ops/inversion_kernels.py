@@ -42,6 +42,17 @@ ctypes) or raises; on a CPU tensor it runs the plain PyTorch version, which
 keeps the kernel's per-element op order as separate ops. Each wrapper
 counts its kernel launches (:func:`launch_counts`).
 
+K1-K4 read their pixels' feature rows in bucket (slot) order. Given as
+``feats``, those rows are a bucket-ordered copy the caller made. Given
+``index=``, the bucket permutation (slot -> pixel, -1 for a padding slot),
+the kernel reads each slot's row from ``feats``, then the pixel table,
+itself, NaN for padding, and K2-K4 write their results straight into pixel
+order: no copy is made on either side (the fused inversion's path). The
+plain versions build the copy, ``where(index >= 0, rows[index.clamp(0)],
+nan)``, and scatter the results back, so the two stay bit-equal. Both forms
+count their slots: ``perm_rows_read`` (read through an index) and
+``rows_gathered`` (read from a copy made beforehand).
+
 The per-entry cost is ``((l - s0) * inv_dsig)^2 + (u/2 - ma/2)^2 +
 (v/2 - mz/2)^2``, summed left to right, each square a plain product
 (``_slab_sweep`` at pallas_inversion.py:795). The kernels use ``__f*_rn``
@@ -274,6 +285,23 @@ def _chunk(chunk_blocks, per_block):
     return max(1, min(chunk_blocks, _PLAIN_ELEMENTS // max(1, per_block)))
 
 
+def _slot_rows(rows, index, width):
+    """The slot-order copy that the indexed kernels never make: slot s's
+    first ``width`` features from row ``index[s]`` of ``rows``, NaN where
+    ``index[s] < 0`` (padding)."""
+    return torch.where((index >= 0)[:, None], rows[index.clamp(min=0), :width], float("nan"))
+
+
+def _to_pixels(slots, index, n_px):
+    """Per-slot results ``slots`` (..., n_slots) written into pixel order
+    (..., n_px) at ``index``, padding slots dropped; 0 at a pixel no slot
+    names."""
+    valid = index >= 0
+    out = torch.zeros(slots.shape[:-1] + (n_px,), dtype=slots.dtype, device=slots.device)
+    out[..., index[valid]] = slots[..., valid]
+    return out
+
+
 def _row_minima(lut_c, u_half, v_half, fb, band):
     """Per pixel of blocks with features ``fb`` (nb, block, 4) and LUT bands
     ``band`` (nb,), the least cost of each grid row, NaN entries left out
@@ -285,7 +313,9 @@ def _row_minima(lut_c, u_half, v_half, fb, band):
 
 
 def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                        block, chunk_blocks=16):
+                        block, chunk_blocks=16, index=None):
+    if index is not None:
+        feats = _slot_rows(feats, index, 4)
     n_blocks = band_of_block.shape[0]
     chunk_blocks = _chunk(chunk_blocks, block * u_half.numel())
     inf = float("inf")
@@ -517,7 +547,12 @@ def _crosspol_plain(cr_row, w_half, s0_cr, dsig_cr, wco_half, has_co):
 
 def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
                              sband, srow0, vmask, has_cr, block, n_rows=SLAB_ROWS,
-                             chunk_blocks=16):
+                             chunk_blocks=16, index=None):
+    if index is not None:
+        out = _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
+                                       cr_whalf, _slot_rows(feats, index, 8), sband, srow0,
+                                       vmask, has_cr, block, n_rows, chunk_blocks)
+        return _to_pixels(out[:, :3].permute(1, 0, 2).reshape(3, -1), index, feats.shape[0])
     n_blocks = sband.shape[0]
     n_phi = lut_pad.shape[2]
     f = feats.reshape(n_blocks, block, 8)
@@ -573,12 +608,22 @@ def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk
 
 
 def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
-                       n_rows=SLAB_ROWS, chunk_blocks=16):
-    return _slab_index_plain(_direct_slab_cost(lut_pad, u_half, v_half), lut_pad.shape[2],
-                             feats, sband, srow0, vmask, block, chunk_blocks, n_rows)
+                       n_rows=SLAB_ROWS, chunk_blocks=16, index=None):
+    slab_cost = _direct_slab_cost(lut_pad, u_half, v_half)
+    if index is None:
+        return _slab_index_plain(slab_cost, lut_pad.shape[2], feats, sband, srow0, vmask, block,
+                                 chunk_blocks, n_rows)
+    out = _slab_index_plain(slab_cost, lut_pad.shape[2], _slot_rows(feats, index, 4), sband,
+                            srow0, vmask, block, chunk_blocks, n_rows)
+    return _to_pixels(out.reshape(-1), index, feats.shape[0])
 
 
-def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64):
+def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64,
+                           index=None):
+    if index is not None:
+        out = _crosspol_argmin_plain(cr_lut, w_half, _slot_rows(feats, index, 4), band_of_block,
+                                     block, chunk_blocks)
+        return _to_pixels(out.reshape(-1), index, feats.shape[0])
     n_blocks = band_of_block.shape[0]
     f = feats.reshape(n_blocks, block, 4, 1)
     out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
@@ -653,15 +698,16 @@ def _load():
             with spans.span("xs.build"):
                 lib = ctypes.CDLL(str(build_kernels()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.xs_group_argmin.argtypes = [p] * 7 + [i] * 5 + [p]
+            ll = ctypes.c_longlong
+            lib.xs_group_argmin.argtypes = [p] * 6 + [i] + [p] * 2 + [i] * 5 + [p]
             lib.xs_group_argmin.restype = i
-            lib.xs_group_argmin_streamed.argtypes = [p] * 9 + [i] * 6 + [p]
+            lib.xs_group_argmin_streamed.argtypes = [p] * 7 + [i] + [p] * 3 + [i] * 6 + [p]
             lib.xs_group_argmin_streamed.restype = i
-            lib.xs_slab_refine_fused.argtypes = [p] * 12 + [i] * 8 + [p]
+            lib.xs_slab_refine_fused.argtypes = [p] * 9 + [i] + [p] * 4 + [ll] + [i] * 8 + [p]
             lib.xs_slab_refine_fused.restype = i
-            lib.xs_slab_refine.argtypes = [p] * 8 + [i] * 7 + [p]
+            lib.xs_slab_refine.argtypes = [p] * 5 + [i] + [p] * 4 + [i] * 7 + [p]
             lib.xs_slab_refine.restype = i
-            lib.xs_crosspol_argmin.argtypes = [p] * 5 + [i] * 3 + [p]
+            lib.xs_crosspol_argmin.argtypes = [p] * 4 + [i] + [p] * 2 + [i] * 3 + [p]
             lib.xs_crosspol_argmin.restype = i
             lib.xs_crosspol_quotient.argtypes = [p] * 4 + [i, p]
             lib.xs_crosspol_quotient.restype = i
@@ -677,7 +723,7 @@ def _load():
             lib.xs_split_g4.restype = i
             lib.xs_chunk_lower_bounds.argtypes = [p] * 3 + [i] * 2 + [p]
             lib.xs_chunk_lower_bounds.restype = i
-            lib.xs_dual_merge.argtypes = [p] * 6 + [ctypes.c_longlong, p]
+            lib.xs_dual_merge.argtypes = [p] * 6 + [ll, p]
             lib.xs_dual_merge.restype = i
             lib.xs_error_string.argtypes = [i]
             lib.xs_error_string.restype = ctypes.c_char_p
@@ -714,17 +760,48 @@ def _in_range(t, lo, hi, name):
             raise ValueError(f"{name} values [{mn}, {mx}] outside [{lo}, {hi})")
 
 
+def _count_rows(n_slots, index):
+    """A launch's ``n_slots`` slots, read through ``index`` (counter
+    ``perm_rows_read``) or from a bucket-ordered copy made beforehand
+    (``rows_gathered``): from shapes, no host wait."""
+    spans.count("rows_gathered" if index is None else "perm_rows_read", n_slots)
+
+
+def _rows_args(name, feats, index, n_slots, width, vector=False):
+    """Check a launch's feature rows and return ``(index pointer, row stride
+    in floats)``: without an index, ``feats`` (n_slots, width) in slot order;
+    with one, ``index`` (n_slots,) int64 on ``feats``' device and ``feats``
+    the pixel table (n_px, C), C >= width. ``vector``: the kernel reads a
+    row's first 4 floats as one 16-byte load. The index's values, in [-1,
+    n_px), are the caller's to keep (bucketing makes them so); checking them
+    would cost a host wait a launch."""
+    if index is None:
+        _require(feats, "feats", torch.float32, (n_slots, width))
+    else:
+        _cuda_args(feats.device, {"index": (index, torch.int64, (n_slots,))})
+        _require(feats, "feats", torch.float32)
+        if feats.dim() != 2 or feats.shape[1] < width:
+            raise ValueError(f"{name}: the rows table must be (n_px, >= {width}), "
+                             f"got {tuple(feats.shape)}")
+    if vector and (feats.shape[1] % 4 or feats.data_ptr() % 16):
+        raise ValueError(f"{name}: feats needs 16-byte aligned rows of a multiple of 4 floats, "
+                         f"got {feats.shape[1]} floats at {feats.data_ptr() % 16} bytes")
+    return (None if index is None else index.data_ptr()), feats.shape[1]
+
+
 # ------------------------------------------------------------------ wrappers
 
 def k1_staged_fits(n_rows, n_cols):
     """Whether K1's staged form can hold an ``n_rows`` x ``n_cols`` grid in
-    a block's shared memory (its three planes, row groups and partials)."""
+    a block's shared memory (its three planes, row groups and partials, and
+    the features its indexed form gathers)."""
     ld = (n_cols + 3) & ~3
-    return (3 * n_rows * ld + 2 * 4 * GROUP_BLOCK + n_rows) * 4 <= _SMEM_OPTIN
+    floats = (3 * n_rows * ld + 2 * 4 * GROUP_BLOCK + n_rows + 3) & ~3
+    return (floats + 4 * GROUP_BLOCK) * 4 <= _SMEM_OPTIN
 
 
 def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                 block=GROUP_BLOCK):
+                 block=GROUP_BLOCK, *, index=None):
     """K1: first-minimum wspd group per pixel over a grid of LUT cells, the
     grid held whole in shared memory (the fused mode's coarse grid).
 
@@ -737,13 +814,18 @@ def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_group
     chains meets its groups in ascending order; checked once per table,
     :func:`check_row_group`) and a grid that fits a block's shared memory
     (:func:`k1_staged_fits`); the plain version takes any.
+    ``index`` (n_blocks*block,) int64: the bucket permutation; feats is then
+    the pixel table (n_px, C), C a multiple of 4 (the fused tail's 8), whose
+    rows' first 4 floats are the features above, and slot s reads row
+    ``index[s]`` (NaN features where it is -1). The result stays in slot
+    order.
     """
     return _group_argmin("group_argmin", lut_c, u_half, v_half, row_group, feats,
-                         band_of_block, n_groups, block)
+                         band_of_block, n_groups, block, index=index)
 
 
 def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                          block=GROUP_BLOCK, *, radii, swept=None, _prune=True):
+                          block=GROUP_BLOCK, *, radii, swept=None, _prune=True, index=None):
     """K1's streamed form: :func:`group_argmin` on a grid of any height, its
     rows streamed through shared memory 16 at a time (the fused_exact mode's
     full grid, built by :func:`build_coarse_arrays` at strides 1, or a coarse
@@ -757,9 +839,10 @@ def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block
     an optional ``(n_blocks, 3)`` int32 card tensor, receives each block's
     chunks and grid rows staged and (pixel, row) pairs swept, a pixel
     counted where its s0 is not NaN. ``_prune=False`` sweeps every chunk (A/B
-    and tests). The plain version ignores the last three."""
+    and tests). The plain version ignores these three. ``index`` as for
+    :func:`group_argmin`."""
     return _group_argmin("group_argmin_streamed", lut_c, u_half, v_half, row_group, feats,
-                         band_of_block, n_groups, block, radii, swept, _prune)
+                         band_of_block, n_groups, block, radii, swept, _prune, index)
 
 
 def chunk_lower_bounds(feats, radii):
@@ -785,11 +868,12 @@ def chunk_lower_bounds(feats, radii):
 
 
 def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                  block, radii=None, swept=None, prune=True):
+                  block, radii=None, swept=None, prune=True, index=None):
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
+        _count_rows(n_blocks * block, index)
         return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
-                                   n_groups, block)
+                                   n_groups, block, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {feats.device}")
     streamed = name == "group_argmin_streamed"
@@ -800,12 +884,10 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
         "u_half": (u_half, torch.float32, None),
         "v_half": (v_half, torch.float32, (n_rows, n_cols)),
         "row_group": (row_group, torch.int32, (n_rows,)),
-        "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "band_of_block": (band, torch.int32, None)})
+    index_ptr, stride = _rows_args(name, feats, index, n_blocks * block, 4, vector=True)
     if block != GROUP_BLOCK:
         raise ValueError(f"{name}: the kernel takes blocks of {GROUP_BLOCK} pixels")
-    if feats.data_ptr() % 16:
-        raise ValueError(f"{name}: feats must be 16-byte aligned")
     if not streamed and not k1_staged_fits(n_rows, n_cols):
         raise ValueError(f"group_argmin: a {n_rows} x {n_cols} grid does not fit a block's "
                          "shared memory; use group_argmin_streamed")
@@ -823,18 +905,19 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.xs_group_argmin_streamed(
                 lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
-                radii.data_ptr(), feats.data_ptr(), band.data_ptr(), out.data_ptr(),
-                None if swept is None else swept.data_ptr(), n_blocks, block, n_rows, n_cols,
-                n_groups, int(bool(prune)), stream)
+                radii.data_ptr(), feats.data_ptr(), index_ptr, stride, band.data_ptr(),
+                out.data_ptr(), None if swept is None else swept.data_ptr(), n_blocks, block,
+                n_rows, n_cols, n_groups, int(bool(prune)), stream)
     else:
         with torch.cuda.device(feats.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.xs_group_argmin(
                 lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
-                feats.data_ptr(), band.data_ptr(), out.data_ptr(),
+                feats.data_ptr(), index_ptr, stride, band.data_ptr(), out.data_ptr(),
                 n_blocks, block, n_rows, n_cols, n_groups, stream)
     _check(lib, rc, name)
     _count(name)
+    _count_rows(n_blocks * block, index)
     return out
 
 
@@ -867,7 +950,7 @@ def _check_smem(n_bytes, name):
 
 def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
                       srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS, *,
-                      chunk_rows=8):
+                      chunk_rows=8, index=None):
     """K2: slab refine + decode + crosspol argmin per (band, group) block.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
@@ -885,13 +968,21 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     same bits (no path passes it; ``scripts/bench_slab_variants.py`` times
     them). A height whose stages do not fit a block's shared memory is
     refused with the bytes it needs.
+
+    ``index`` (n_blocks*block,) int64, the bucket permutation: feats is then
+    the pixel table (n_px, C >= 8) whose rows are the features above, slot s
+    reads row ``index[s]`` (NaN features where it is -1), and the result is
+    (3, n_px) f32 in pixel order, rows (wspd_co, phi, wspd_cr) written at
+    ``index[s]`` (0 at a pixel no slot names; every pixel in at most one
+    slot). The kernel's indexed form runs at ``chunk_rows=8``.
     """
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine_fused")
     if feats.device.type == "cpu":
+        _count_rows(n_blocks * block, index)
         return _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
                                         cr_whalf, feats, sband, srow0, vmask, has_cr, block,
-                                        n_rows)
+                                        n_rows, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"slab_refine_fused: unsupported device {feats.device}")
     n_inc, wp_rows, n_phi = lut_pad.shape
@@ -905,9 +996,11 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
         "co_phir": (co_phir, torch.float32, (n_phi,)),
         "cr_lut": (cr_lut, torch.float32, (n_inc, n_cr) if has_cr else None),
         "cr_whalf": (cr_whalf, torch.float32, None),
-        "feats": (feats, torch.float32, (n_blocks * block, 8)),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
+    index_ptr, stride = _rows_args("slab_refine_fused", feats, index, n_blocks * block, 8)
+    if index is not None and chunk_rows != 8:
+        raise ValueError("slab_refine_fused: the indexed form runs at chunk_rows=8")
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine_fused: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine_fused")
@@ -915,23 +1008,26 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     _check_smem(max(smem, 8 * ((n_cr + 3) & ~3)) if has_cr else smem, "slab_refine_fused")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
-    out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
+    n_px = feats.shape[0]
+    out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device) \
+        if index is None else torch.zeros((3, n_px), dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_slab_refine_fused(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), w_pad.data_ptr(),
             co_phir.data_ptr(), cr_lut.data_ptr(), cr_whalf.data_ptr(), feats.data_ptr(),
-            i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, n_rows, n_cr, int(bool(has_cr)), chunk_rows,
-            stream)
+            index_ptr, stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
+            out.data_ptr(), n_px, n_blocks, block, wp_rows, n_phi, n_rows, n_cr,
+            int(bool(has_cr)), chunk_rows, stream)
     _check(lib, rc, "slab_refine_fused")
     _count("slab_refine_fused", chunk_rows)
+    _count_rows(n_blocks * block, index)
     return out
 
 
 def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK,
-                n_rows=SLAB_ROWS, *, chunk_rows=8):
+                n_rows=SLAB_ROWS, *, chunk_rows=8, index=None):
     """K3: slab refine per (band, group) block, emitting the flat index.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
@@ -942,13 +1038,16 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
     (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
     ``((2**30 // P) & ~1) * P`` for one with no finite cost (the reference's
     sentinels: clip before use as an index); 0 in all-padding blocks.
-    ``chunk_rows`` as for :func:`slab_refine_fused`.
+    ``chunk_rows`` as for :func:`slab_refine_fused`. ``index``: as there,
+    feats then the pixel table (n_px, C >= 4), and the result (n_px,) i32
+    in pixel order (0 at a pixel no slot names).
     """
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine")
     if feats.device.type == "cpu":
+        _count_rows(n_blocks * block, index)
         return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
-                                  n_rows)
+                                  n_rows, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"slab_refine: unsupported device {feats.device}")
     n_inc, wp_rows, n_phi = lut_pad.shape
@@ -957,29 +1056,34 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         "lut_pad": (lut_pad, torch.float32, None),
         "u_half": (u_half, torch.float32, (wp_rows, n_phi)),
         "v_half": (v_half, torch.float32, (wp_rows, n_phi)),
-        "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
+    index_ptr, stride = _rows_args("slab_refine", feats, index, n_blocks * block, 4)
+    if index is not None and chunk_rows != 8:
+        raise ValueError("slab_refine: the indexed form runs at chunk_rows=8")
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine")
     _check_smem(slab_smem_bytes(n_phi, n_rows, chunk_rows), "slab_refine")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
-    out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
+    out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device) \
+        if index is None else torch.zeros(feats.shape[0], dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_slab_refine(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), feats.data_ptr(),
-            i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(),
-            n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi), chunk_rows, stream)
+            index_ptr, stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
+            out.data_ptr(), n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi),
+            chunk_rows, stream)
     _check(lib, rc, "slab_refine")
     _count("slab_refine", chunk_rows)
+    _count_rows(n_blocks * block, index)
     return out
 
 
-def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
+def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, index=None):
     """K4: crosspol wind-speed argmin per block sharing one crosspol band.
 
     cr_lut (I, Wc), w_half (Wc,) from :func:`build_crosspol_arrays`; feats
@@ -988,10 +1092,16 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
     (n_blocks,) crosspol band per block. Returns (n_blocks, block) f32: the
     first-minimum wind speed in m/s, 0 where any cost is NaN. The kernel
     takes blocks of ``CR_BLOCK`` pixels; the plain version takes any.
+    ``index`` (n_blocks*block,) int64, the bucket permutation: feats is then
+    the pixel table (n_px, C), C a multiple of 4, whose rows' first 4
+    floats are the features above, slot s reads row ``index[s]`` (NaN
+    features where it is -1), and the result is (n_px,) f32 in pixel order
+    (0 at a pixel no slot names; every pixel in at most one slot).
     """
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
-        return _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block)
+        _count_rows(n_blocks * block, index)
+        return _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"crosspol_argmin: unsupported device {feats.device}")
     n_inc, n_cr = cr_lut.shape
@@ -999,22 +1109,23 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK):
     _cuda_args(feats.device, {
         "cr_lut": (cr_lut, torch.float32, None),
         "w_half": (w_half, torch.float32, (n_cr,)),
-        "feats": (feats, torch.float32, (n_blocks * block, 4)),
         "band_of_block": (band, torch.int32, None)})
+    index_ptr, stride = _rows_args("crosspol_argmin", feats, index, n_blocks * block, 4,
+                                   vector=True)
     if block != CR_BLOCK:
         raise ValueError(f"crosspol_argmin: the kernel takes blocks of {CR_BLOCK} pixels")
-    if feats.data_ptr() % 16:
-        raise ValueError("crosspol_argmin: feats must be 16-byte aligned")
     _in_range(band, 0, n_inc, "band_of_block")
-    out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
+    out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device) \
+        if index is None else torch.zeros(feats.shape[0], dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_crosspol_argmin(cr_lut.data_ptr(), w_half.data_ptr(), feats.data_ptr(),
-                                    band.data_ptr(), out.data_ptr(), n_blocks, block, n_cr,
-                                    stream)
+                                    index_ptr, stride, band.data_ptr(), out.data_ptr(), n_blocks,
+                                    block, n_cr, stream)
     _check(lib, rc, "crosspol_argmin")
     _count("crosspol_argmin")
+    _count_rows(n_blocks * block, index)
     return out
 
 
@@ -1102,12 +1213,12 @@ def dual_merge(co_re, co_im, du_re, du_im):
 
 def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                  n_groups, block=GROUP_BLOCK, radii=None, swept=None,
-                                 _prune=True, chunk_blocks=16):
+                                 _prune=True, chunk_blocks=16, index=None):
     """K1's streamed form has K1's plain version, unpruned: pruning leaves
     every answer as it is. ``radii``, ``swept`` and ``_prune`` are the
     kernel's and are ignored."""
     return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                               block, chunk_blocks)
+                               block, chunk_blocks, index)
 
 
 KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_streamed,

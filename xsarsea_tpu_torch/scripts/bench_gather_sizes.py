@@ -1,9 +1,11 @@
 """Microbenchmark: row-gather cost against the source table's size.
 
-Port of ``scripts/bench_gather_sizes.py``. The fused inversion moves pixels
-between pixel order and bucket order with row gathers from n-row tables
-(``pix[perm]``, ``pix[perm2]``: ``windspeed/inversion.py:455, 469``) and a
-scatter back (``res[:, dst]``). An alternative emits one i32 index a pixel
+Port of ``scripts/bench_gather_sizes.py``. The fused inversion once moved
+pixels between pixel order and bucket order with row gathers from n-row
+tables (``pix[perm]``, ``pix[perm2]``) and a scatter back (``res[:, dst]``);
+its kernels now read and write through the permutation instead (``index=``
+in ``ops/inversion_kernels.py``), and these timings are what that saves. An
+alternative emits one i32 index a pixel
 and decodes values in pixel order from the small (n_wspd * n_phi, 4) decode
 table: worth it only if a gather from a cache-resident table is much cheaper
 than one from an n-row table in HBM. At n = 2**23 this times, CUDA events,

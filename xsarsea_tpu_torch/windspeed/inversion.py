@@ -374,11 +374,13 @@ def _postprocess_vectorized(inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, ws
 
 
 def _make_fused_invert_fn(tables, device, coarse=True):
-    """Fused inversion: bucketing, K1, re-bucketing, then K2 and a scatter
-    back to pixel order, or (crosspol LUT on its own incidence axis) K3, a
-    decode in pixel order and K4 re-bucketed by the crosspol axis; then the
-    vectorized postprocess (reference ``_make_pallas_invert_fn``,
-    inversion.py:659-1015).
+    """Fused inversion: bucketing, K1, re-bucketing, then K2, or (crosspol
+    LUT on its own incidence axis) K3, a decode in pixel order and K4
+    re-bucketed by the crosspol axis; then the vectorized postprocess
+    (reference ``_make_pallas_invert_fn``, inversion.py:659-1015). The
+    kernels read the pixel table through each bucket permutation and K2-K4
+    write pixel order through it (``index=``): no bucket-ordered copy of the
+    features or of the results is made.
 
     ``coarse``: K1 on the coarse grid (``_COARSE_DW`` x ``_COARSE_DPHI``)
     with a ``_COARSE_MARGIN`` refine margin in wspd rows (a multiple of 8, as
@@ -471,13 +473,11 @@ def _make_fused_invert_fn(tables, device, coarse=True):
                     # close and K1's streamed form sweeps few groups for it
                     perm, band_of_block = bucket_by_band_sorted(
                         band, torch.hypot(pix[:, 1], pix[:, 2]), n_inc, block)
-            valid = perm >= 0
-
-            # stage 1: coarse group argmin per incidence-band block (K1)
-            feats1 = torch.where(valid[:, None], pix[perm.clamp(min=0), :4], nan)
 
         with span("xs.coarse"):
-            gstar = getattr(K, k1_name)(*k1_ops, feats1, band_of_block, n_wgroups,
+            # stage 1: coarse group argmin per incidence-band block (K1), each
+            # slot's features (pix's first 4 columns) read through perm
+            gstar = getattr(K, k1_name)(*k1_ops, pix, band_of_block, n_wgroups, index=perm,
                                         **k1_kw).reshape(-1)
 
         with span("xs.rebucket"):
@@ -485,32 +485,26 @@ def _make_fused_invert_fn(tables, device, coarse=True):
             perm2, key_of_block = _rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
                                                  n_wgroups=n_wgroups, block=block,
                                                  slab_block=K.SLAB_BLOCK)
-            valid2 = perm2 >= 0
-            dst = perm2[valid2]  # every pixel id sits in exactly one valid slot
+            # every pixel id sits in exactly one slot of perm2, -1 marks padding
             sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
             srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - margin, 0,
                                 wp_rows - slab_rows)
-            vmask = valid2.reshape(-1, K.SLAB_BLOCK).any(dim=1)
-            feats2 = torch.where(valid2[:, None], pix[perm2.clamp(min=0)], nan)
+            vmask = (perm2 >= 0).reshape(-1, K.SLAB_BLOCK).any(dim=1)
 
         with span("xs.refine"):
             if fused_tail:
-                # slab refine + decode + crosspol (K2), then back to pixel order
-                vals = K.slab_refine_fused(*direct, co_phir, *cr_ops, feats2, sband, srow0, vmask,
-                                           has_cr=has_cr, block=K.SLAB_BLOCK, n_rows=slab_rows)
-                slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
-                res = torch.empty((3, n), dtype=f32, device=inc.device)
-                res[:, dst] = slots[:3]
+                # slab refine + decode + crosspol (K2), written in pixel order
+                res = K.slab_refine_fused(*direct, co_phir, *cr_ops, pix, sband, srow0, vmask,
+                                          has_cr=has_cr, block=K.SLAB_BLOCK, n_rows=slab_rows,
+                                          index=perm2)
                 wspd_co_raw, phir_sol, wspd_dual = res[0], res[1], res[2] if has_cr else None
             else:
-                # slab refine emitting the winner's index (K3), decoded in pixel
-                # order; the reference clips its sentinels to the last grid cell
-                # (inversion.py:940-946)
-                flat_r = K.slab_refine(*direct[:3], feats2, sband, srow0, vmask,
-                                       block=K.SLAB_BLOCK, n_rows=slab_rows)
-                flat = torch.zeros(n, dtype=torch.int64, device=inc.device)
-                flat[dst] = flat_r.reshape(-1)[valid2].to(torch.int64)
-                flat = flat.clamp(0, n_wspd * n_phi - 1)
+                # slab refine emitting the winner's index (K3) in pixel order,
+                # decoded there; the reference clips its sentinels to the last
+                # grid cell (inversion.py:940-946)
+                flat = K.slab_refine(*direct[:3], pix, sband, srow0, vmask, block=K.SLAB_BLOCK,
+                                     n_rows=slab_rows, index=perm2)
+                flat = flat.to(torch.int64).clamp(0, n_wspd * n_phi - 1)
                 wspd_co_raw = direct[3][torch.div(flat, n_phi, rounding_mode="floor")]
                 phir_sol = co_phir[flat % n_phi]
 
@@ -522,13 +516,9 @@ def _make_fused_invert_fn(tables, device, coarse=True):
                 has_co = (~torch.isnan(wspd_co_m)).to(f32)
                 perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc),
                                               cr_grid.shape[0], K.CR_BLOCK)
-                valid3 = perm3 >= 0
                 pix3 = torch.stack([s0_cr_db.to(f32), dsig_cr.to(f32),
                                     torch.where(has_co > 0, wspd_co_m, 0.0) * 0.5, has_co], dim=1)
-                feats3 = torch.where(valid3[:, None], pix3[perm3.clamp(min=0)], nan)
-                wd = K.crosspol_argmin(*cr_ops, feats3, band3, block=K.CR_BLOCK)
-                wspd_dual = torch.zeros(n, dtype=f32, device=inc.device)
-                wspd_dual[perm3[valid3]] = wd.reshape(-1)[valid3]
+                wspd_dual = K.crosspol_argmin(*cr_ops, pix3, band3, block=K.CR_BLOCK, index=perm3)
 
         with span("xs.post"):
             return _postprocess_vectorized(
