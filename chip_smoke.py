@@ -6,7 +6,9 @@ device and ``nvcc``, and imports nothing of JAX. Phases, each printed as
 it finishes; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. the build of the inversion kernels from ``xsarsea_tpu_torch/ops/csrc``;
+2. the build of the kernels from ``xsarsea_tpu_torch/ops/csrc``: the main
+   path's library (K1-K4, ``dual_merge``), then the experiment kernels' (K5,
+   K6, the hoisted quotient's test entries);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    on the high-resolution LUTs and a 64 Kpx bucketed subsample of the scene;
    then K2 and K3 on the seam cases of their slab sweep
@@ -45,7 +47,8 @@ it finishes; any failure exits non-zero:
    expanded-form variants (K6) at 2**23 pixels on both engines (CUDA cores;
    tensor cores, after g4's one-off split), timed in turns; K2 and K3 at
    every chunk height (``scripts/bench_slab_variants.py``, the same scene
-   with its crosspol sigma0), timed in turns. Each kernel must have been
+   with its crosspol sigma0, its rows in slot order read through the
+   identity index), timed in turns. Each kernel must have been
    launched by its script; each K5 form on both loops, each CUDA-core K6
    variant, g4's split and K2/K3 at every height must be bit-equal to their
    plain versions (and every height to 8's), the direct form on both loops
@@ -361,12 +364,11 @@ def sweep_note(torch, K, name, args, kwargs):
     """The work a kernel's sweep is given: live pixels (those whose first
     feature, s0, is not NaN), slots of the blocks it runs (for K2/K3 those
     with vmask 1), and slots it sweeps (32-pixel groups holding a live
-    pixel). A call that reads through the bucket permutation (``index``)
-    has its slots' s0 read through it here."""
+    pixel). The slots' s0 are read through the call's bucket permutation
+    (``index``)."""
+    index = kwargs["index"]
     s0 = feats_of(name, args)[:, 0]
-    if kwargs.get("index") is not None:
-        index = kwargs["index"]
-        s0 = torch.where(index >= 0, s0[index.clamp(min=0)], float("nan"))
+    s0 = torch.where(index >= 0, s0[index.clamp(min=0)], float("nan"))
     if name in ("slab_refine_fused", "slab_refine"):
         s0 = s0.reshape(-1, K.SLAB_BLOCK)
         s0 = s0[args[-1].to(torch.bool)]
@@ -455,7 +457,8 @@ def hold_on_seams(torch, K, tables, report, phase, n_rows=None):
     n_rows = n_rows or K.SLAB_ROWS
     cases = seam_cases(n_phi=tables.co_lut.shape[2], n_wspd=tables.co_lut.shape[1],
                        n_rows=n_rows)
-    block = {"block": K.SLAB_BLOCK, **({} if n_rows == K.SLAB_ROWS else {"n_rows": n_rows})}
+    block = {"block": K.SLAB_BLOCK, "index": cases.index("cuda"),
+             **({} if n_rows == K.SLAB_ROWS else {"n_rows": n_rows})}
     for name, args, kwargs in (("slab_refine_fused", cases.k2_args("cuda"),
                                 {"has_cr": True, **block}),
                                ("slab_refine", cases.k3_args("cuda"), block)):
@@ -494,16 +497,18 @@ def hold_on_coarse_seams(torch, K, n_cols, crosspol_widths, n_phi, report, phase
             f"and at their {len(expected)} designed answers")
 
     cases = coarse_seams.coarse_seam_cases(n_cols)
-    hold("group_argmin", cases.args("cuda"), {"block": K.GROUP_BLOCK}, cases.expected,
+    hold("group_argmin", cases.args("cuda"),
+         {"block": K.GROUP_BLOCK, "index": cases.index("cuda")}, cases.expected,
          lambda out: out.reshape(-1), f"its sweep's seam cases, {n_cols} columns")
     for n_cr in crosspol_widths:
         cases = coarse_seams.crosspol_seam_cases(n_cr)
-        hold("crosspol_argmin", cases.args("cuda"), {"block": K.CR_BLOCK}, cases.expected,
-             lambda out: out.reshape(-1), f"the crosspol loop's seam cases, {n_cr} entries")
+        hold("crosspol_argmin", cases.args("cuda"),
+             {"block": K.CR_BLOCK, "index": cases.index("cuda")}, cases.expected,
+             lambda out: out, f"the crosspol loop's seam cases, {n_cr} entries")
     fused, expected = coarse_seams.fused_crosspol_seam_cases(crosspol_widths[-1], n_phi)
-    hold("slab_refine_fused", fused.k2_args("cuda"), {"has_cr": True, "block": K.SLAB_BLOCK},
-         expected, lambda out: out.permute(0, 2, 1).reshape(-1, 4)[:, 2],
-         f"the crosspol loop's seam cases, {crosspol_widths[-1]} entries")
+    hold("slab_refine_fused", fused.k2_args("cuda"),
+         {"has_cr": True, "block": K.SLAB_BLOCK, "index": fused.index("cuda")}, expected,
+         lambda out: out[2], f"the crosspol loop's seam cases, {crosspol_widths[-1]} entries")
 
 
 def hold_quotient(torch, K, luts, random_pairs, phase):
@@ -511,7 +516,7 @@ def hold_quotient(torch, K, luts, random_pairs, phase):
     card (``a / b``, IEEE), bit for bit and NaN for NaN: ``random_pairs``
     random bit patterns, as many pairs inside the hoisted route's windows,
     and the edge set with the differences of ``luts``."""
-    from xsarsea_tpu_torch.ops import coarse_seams
+    from xsarsea_tpu_torch.ops import coarse_seams, experiment_kernels as E
 
     sets = {"edge": coarse_seams.quotient_edge_set("cuda", luts)}
     if random_pairs:
@@ -519,7 +524,7 @@ def hold_quotient(torch, K, luts, random_pairs, phase):
         sets["in-window"] = coarse_seams.quotient_random_set(random_pairs, 1, "cuda", True)
     notes = []
     for name, (a, b) in sets.items():
-        q, hoisted = K.crosspol_quotient(a, b)
+        q, hoisted = E.crosspol_quotient(a, b)
         ref = a / b
         same = (q.view(torch.int32) == ref.view(torch.int32)) | (q.isnan() & ref.isnan())
         n_hoisted = int(hoisted.sum())
@@ -759,12 +764,14 @@ def phase8(torch, K, report):
         log(f"phase 8 slab_forms:{form}: shared loop / thread loop = "
             f"{r['ms'] / r['thread']['ms']:.3f} (timed in turns)")
         if form == "direct":  # both loops against K3's sweep, same arguments
+            # the rows are in slot order: K3 reads them through the identity
             k3_args = (*args[1:4], *args[5:])
-            k3 = K.slab_refine(*k3_args)
+            ident = torch.arange(args[5].shape[0], device=args[5].device)
+            k3 = K.slab_refine(*k3_args, index=ident).reshape(r["out"].shape)
             torch.cuda.synchronize()
             if not (torch.equal(k3, r["out"]) and torch.equal(k3, r["thread"]["out"])):
                 raise SystemExit("phase 8: the direct form differs from slab_refine (K3)")
-            t = cuda_ms_turns({"k3": lambda: K.slab_refine(*k3_args),
+            t = cuda_ms_turns({"k3": lambda: K.slab_refine(*k3_args, index=ident),
                                "shared": lambda: E.slab_forms(*args)},
                               rounds=bench_slab_forms.REPS)
             log(f"phase 8 slab_forms:direct: both loops bit-equal to slab_refine (K3), which "
@@ -850,13 +857,14 @@ def phase8(torch, K, report):
         args = sv["args"][kernel]
         plain_ms, ref = timed_once(torch, lambda: plain_version(K, kernel)(
             *args, **({"has_cr": True} if kernel == "slab_refine_fused" else {}),
-            block=K.SLAB_BLOCK, chunk_blocks=128))
+            block=K.SLAB_BLOCK, chunk_blocks=128, index=sv["index"]))
         for rows, run_ in runs.items():
             name = f"{kernel}:chunk_rows={rows}"
             if not run_["equal"]:
                 raise SystemExit(f"phase 8: {name} differs from chunk_rows=8")
             counted = kernel if rows == 8 else name
-            height_bound = kernel_bound(torch, K, kernel, args, {}, run_["out"])
+            height_bound = kernel_bound(torch, K, kernel, args, {"index": sv["index"]},
+                                        run_["out"])
             report[name] = experiment_entry(torch, kernel, name, run_["out"], ref, run_["ms"],
                                             plain_ms, launches.get(counted, 0), height_bound,
                                             "phase 8")
@@ -1663,7 +1671,8 @@ def phase11(torch, K, sc, tables, own, report, card, seed, n, n_sub, n_cmp, reps
                          coarse_seams.full_grid_seam_cases(n_cols)),
                         ("the prune seams", coarse_seams.prune_seam_cases(n_cols))):
         for prune in (True, False):
-            kwargs = {"block": K.GROUP_BLOCK, "radii": cases.radii("cuda"), "_prune": prune}
+            kwargs = {"block": K.GROUP_BLOCK, "index": cases.index("cuda"),
+                      "radii": cases.radii("cuda"), "_prune": prune}
             err, size = hold_against_plain(torch, K, "group_argmin_streamed", cases.args("cuda"),
                                            kwargs, "phase 11")
             entry = report["group_argmin_streamed"]
@@ -2052,7 +2061,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from xsarsea_tpu_torch.bench import make_scene
-    from xsarsea_tpu_torch.ops import inversion_kernels as K
+    from xsarsea_tpu_torch.ops import experiment_kernels as E, inversion_kernels as K
     from xsarsea_tpu_torch.windspeed.inversion import (_pieces, invert_from_model,
                                                        invert_pixels, prepare_tables)
 
@@ -2085,13 +2094,15 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
     log(card)
     done("phase 1")
 
-    # phase 2: kernel build
-    t0 = time.perf_counter()
-    lib = K.build_kernels()
-    log(f"phase 2 build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in K.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    # phase 2: kernel build, the main path's library, then the experiments'
+    for what, build in (("main", K.build_kernels),
+                        ("experiment", lambda: K.build_kernels(E._SOURCES, "experiments"))):
+        t0 = time.perf_counter()
+        lib = build()
+        log(f"phase 2 build ({what} library): {lib.name} in {time.perf_counter() - t0:.1f} s")
+        for line in K.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
     done("phase 2")
 
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
-"""The bucket-ordered copies that K1-K4's indexed forms do without, for the
-tests that hold the two forms to each other. Imports no JAX.
+"""The bucket-ordered copies that K1-K4 do without, for the tests that hold
+a launch through the bucket permutation to the same kernel on the copy.
+Imports no JAX.
 
 * :func:`slot_rows`, :func:`k2_to_pixels`, :func:`k3_to_pixels`,
   :func:`k4_to_pixels`: the fused path's copies as it made them before its
@@ -7,8 +8,9 @@ tests that hold the two forms to each other. Imports no JAX.
   ``where(perm >= 0, rows[perm.clamp(0)], nan)``, the results scattered back
   with boolean-mask indexing;
 * :func:`copying_kernels`: K1-K4 replaced, for a test's duration, by those
-  forms (copy, launch in slot order, scatter back), so that the fused
-  closure runs as it did with the copies;
+  forms (copy, launch through the identity permutation, so the results come
+  back in slot order, scatter back), so that the fused closure runs as it
+  did with the copies;
 * :func:`kernel_case`: operands of one kernel, its rows table and the bucket
   permutation of ``n_px`` pixels (a partial last block, padding slots, a NaN
   block), on any device; :func:`run_both` launches it both ways.
@@ -32,11 +34,15 @@ def slot_rows(rows, perm, width=None):
     return torch.where((perm >= 0)[:, None], picked, NAN)
 
 
+def identity(rows):
+    """The index of rows already in slot order."""
+    return torch.arange(rows.shape[0], device=rows.device)
+
+
 def k2_to_pixels(vals, perm2, n):
     valid2 = perm2 >= 0
-    slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
     res = torch.empty((3, n), dtype=torch.float32, device=vals.device)
-    res[:, perm2[valid2]] = slots[:3]
+    res[:, perm2[valid2]] = vals[:, valid2]
     return res
 
 
@@ -56,21 +62,24 @@ def k4_to_pixels(wd, perm3, n):
 
 def copied(name, fn, args, kwargs):
     """``fn`` (kernel ``name``'s wrapper) on the slot-order copy of the rows
-    table that ``kwargs["index"]`` reads, its results scattered back."""
+    table that ``kwargs["index"]`` reads, through the identity permutation,
+    its results scattered back."""
     kw = dict(kwargs)
     perm = kw.pop("index")
     if name in K1:
         *ops, rows, band_of_block, n_groups = args
-        return fn(*ops, slot_rows(rows, perm, 4), band_of_block, n_groups, **kw)
+        copy = slot_rows(rows, perm, 4)
+        return fn(*ops, copy, band_of_block, n_groups, index=identity(copy), **kw)
     if name == "crosspol_argmin":
         *ops, rows, band3 = args
-        return k4_to_pixels(fn(*ops, slot_rows(rows, perm), band3, **kw), perm, rows.shape[0])
-    *ops, rows, sband, srow0, vmask = args
-    if name == "slab_refine_fused":
-        return k2_to_pixels(fn(*ops, slot_rows(rows, perm), sband, srow0, vmask, **kw), perm,
+        copy = slot_rows(rows, perm)
+        return k4_to_pixels(fn(*ops, copy, band3, index=identity(copy), **kw), perm,
                             rows.shape[0])
-    return k3_to_pixels(fn(*ops, slot_rows(rows, perm), sband, srow0, vmask, **kw), perm,
-                        rows.shape[0])
+    *ops, rows, sband, srow0, vmask = args
+    copy = slot_rows(rows, perm)
+    vals = fn(*ops, copy, sband, srow0, vmask, index=identity(copy), **kw)
+    to_pixels = k2_to_pixels if name == "slab_refine_fused" else k3_to_pixels
+    return to_pixels(vals, perm, rows.shape[0])
 
 
 def copying_kernels(monkeypatch):

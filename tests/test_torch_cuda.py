@@ -28,6 +28,7 @@ from xsarsea_tpu_torch.windspeed import get_dsig, get_dsig_wspd, nesz_flattening
 from xsarsea_tpu_torch.windspeed.inversion import InversionTables, invert_from_model, \
     invert_pixels, prepare_tables
 
+from _bucket_copies import identity
 from _parity import assert_equal_modulo_pi_ties
 
 pytestmark = pytest.mark.cuda
@@ -65,8 +66,9 @@ def test_kernels_bit_equal_to_plain_versions(cuda):
                        rng.uniform(0, 12, nb1 * 256), np.full(nb1 * 256, 10.0)], 1)
     feats1[5] = np.nan
     args1 = (*coarse, dev(feats1.astype(np.float32)), dev(rng.integers(0, 6, nb1)), n_groups)
-    got1 = K.group_argmin(*args1)
-    ref1 = K._group_argmin_plain(*args1, block=256)
+    ix1 = identity(args1[4])  # rows in slot order
+    got1 = K.group_argmin(*args1, index=ix1)
+    ref1 = K._group_argmin_plain(*args1, block=256, index=ix1)
     assert torch.equal(got1, ref1)
 
     lut_pad, u_pad, v_pad = (dev(a) for a in K.build_direct_arrays(lut, u, v))
@@ -87,11 +89,12 @@ def test_kernels_bit_equal_to_plain_versions(cuda):
     args2 = (lut_pad, u_pad, v_pad, dev(K.build_decode_arrays(wspd, wp)), dev(phir),
              *(dev(a) for a in K.build_crosspol_arrays(crlut, crw)), dev(feats2), dev(sband),
              dev(srow0), dev(vmask))
-    got2 = K.slab_refine_fused(*args2)
-    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=128)
+    ix2 = identity(args2[7])
+    got2 = K.slab_refine_fused(*args2, index=ix2)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=128, index=ix2)
     torch.cuda.synchronize()
     assert torch.equal(got2, ref2)
-    assert (got2[0, 0] == 0).any()  # the NaN LUT entry poisons some of block 0's pixels
+    assert (got2[0, :128] == 0).any()  # the NaN LUT entry poisons some of block 0's pixels
     assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "group_argmin": 1,
                                  "slab_refine_fused": 1}
 
@@ -120,11 +123,12 @@ def test_k3_k4_bit_equal_to_plain_versions(cuda):
     vmask = np.ones(nb, np.int32)
     vmask[7] = 0
     args3 = (lut_pad, u_pad, v_pad, dev(feats), dev(sband), dev(srow0), dev(vmask))
-    got3 = K.slab_refine(*args3)
-    ref3 = K._slab_refine_plain(*args3, block=128)
+    ix3 = identity(args3[3])
+    got3 = K.slab_refine(*args3, index=ix3)
+    ref3 = K._slab_refine_plain(*args3, block=128, index=ix3)
     torch.cuda.synchronize()
     assert torch.equal(got3, ref3)
-    assert (got3[0] == 2 ** 30).any() and got3.reshape(-1)[3] == 2 ** 30
+    assert (got3[:128] == 2 ** 30).any() and got3.reshape(-1)[3] == 2 ** 30
     assert got3.reshape(-1)[300] == ((2 ** 30 // 181) & ~1) * 181
 
     nb4 = 9
@@ -137,8 +141,9 @@ def test_k3_k4_bit_equal_to_plain_versions(cuda):
     feats4[-30:] = np.nan
     args4 = (*(dev(a) for a in K.build_crosspol_arrays(crlut, crw)), dev(feats4),
              dev(rng.integers(0, 6, nb4)))
-    got4 = K.crosspol_argmin(*args4)
-    ref4 = K._crosspol_argmin_plain(*args4, block=256)
+    ix4 = identity(args4[2])
+    got4 = K.crosspol_argmin(*args4, index=ix4)
+    ref4 = K._crosspol_argmin_plain(*args4, block=256, index=ix4)
     torch.cuda.synchronize()
     assert torch.equal(got4, ref4)
     assert (got4.reshape(-1)[[5, 6]] == 0).all() and (got4.reshape(-1)[:5] > 0).all()
@@ -158,10 +163,11 @@ def test_k2_k3_bit_equal_to_plain_versions_on_the_sweeps_seams(cuda, n_phi):
     K.reset_launch_counts()
     args2 = cases.k2_args(cuda)
     args3 = cases.k3_args(cuda)
-    got2 = K.slab_refine_fused(*args2)
-    got3 = K.slab_refine(*args3)
-    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK)
-    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK)
+    index = cases.index(cuda)
+    got2 = K.slab_refine_fused(*args2, index=index)
+    got3 = K.slab_refine(*args3, index=index)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, index=index)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, index=index)
     torch.cuda.synchronize()
     assert torch.equal(got2, ref2)
     assert torch.equal(got3, ref3)
@@ -185,8 +191,8 @@ def test_k1_bit_equal_to_plain_version_on_its_seams(cuda, n_cols):
     cases = coarse_seam_cases(n_cols)
     K.reset_launch_counts()
     args = cases.args(cuda)
-    got = K.group_argmin(*args)
-    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK)
+    got = K.group_argmin(*args, index=cases.index(cuda))
+    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, index=cases.index(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
@@ -208,19 +214,20 @@ def test_k4_k2_bit_equal_to_plain_versions_on_the_crosspol_seams(cuda, n_cr):
     K.reset_launch_counts()
     for f, expected in ((cases.feats, cases.expected), (feats, {})):
         args = (*cases.args(cuda)[:2], torch.as_tensor(f, device=cuda), cases.args(cuda)[3])
-        got = K.crosspol_argmin(*args)
-        ref = K._crosspol_argmin_plain(*args, block=K.CR_BLOCK)
+        got = K.crosspol_argmin(*args, index=cases.index(cuda))
+        ref = K._crosspol_argmin_plain(*args, block=K.CR_BLOCK, index=cases.index(cuda))
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
         assert not _wrong(got.reshape(-1).cpu().numpy(), expected)
 
     fused, expected = fused_crosspol_seam_cases(n_cr, n_phi=72)
     args2 = fused.k2_args(cuda)
-    got2 = K.slab_refine_fused(*args2)
-    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK)
+    got2 = K.slab_refine_fused(*args2, index=fused.index(cuda))
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK,
+                                      index=fused.index(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got2, ref2)
-    assert not _wrong(got2.permute(0, 2, 1).reshape(-1, 4)[:, 2].cpu().numpy(), expected)
+    assert not _wrong(got2[2].cpu().numpy(), expected)
     assert K.launch_counts() == {**dict.fromkeys(K.KERNELS, 0), "crosspol_argmin": 2,
                                  "slab_refine_fused": 1}
 
@@ -248,7 +255,7 @@ def test_hoisted_quotient_bit_equal_to_the_true_divide(cuda):
             "inside the windows": quotient_random_set(1 << 26, 1, cuda, windowed=True),
             "edges": quotient_edge_set(cuda, _crosspol_luts())}
     for name, (a, b) in sets.items():
-        q, hoisted = K.crosspol_quotient(a, b)
+        q, hoisted = E.crosspol_quotient(a, b)
         ref = a / b
         same = (q.view(torch.int32) == ref.view(torch.int32)) | (q.isnan() & ref.isnan())
         bad = torch.nonzero(~same)[:8, 0]
@@ -293,8 +300,9 @@ def test_k5_forms_bit_equal_to_plain_versions(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, ref), form
         assert (got[0] == 2 ** 30).all() and got.reshape(-1)[3] == 2 ** 30
-        if form == "direct":
-            assert torch.equal(got, K.slab_refine(*args[1:4], *args[5:]))
+        if form == "direct":  # K3 reads the slot-order rows through the identity
+            k3 = K.slab_refine(*args[1:4], *args[5:], index=identity(args[5]))
+            assert torch.equal(got, k3.reshape(got.shape))
             assert got.reshape(-1)[300] == ((2 ** 30 // 181) & ~1) * 181
     assert E.launch_counts() == {f"slab_forms/{form}": 1 for form in E.FORMS}
 
@@ -369,12 +377,14 @@ def test_k2_k3_chunk_heights_bit_equal_on_the_sweeps_seams(cuda, n_rows):
     its own launches."""
     cases = seam_cases(n_phi=181, n_rows=n_rows)
     args2, args3 = cases.k2_args(cuda), cases.k3_args(cuda)
-    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=n_rows)
-    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=n_rows)
+    index = cases.index(cuda)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=n_rows,
+                                      index=index)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=n_rows, index=index)
     K.reset_launch_counts()
     for rows in K.CHUNK_ROWS:
-        got2 = K.slab_refine_fused(*args2, n_rows=n_rows, chunk_rows=rows)
-        got3 = K.slab_refine(*args3, n_rows=n_rows, chunk_rows=rows)
+        got2 = K.slab_refine_fused(*args2, n_rows=n_rows, chunk_rows=rows, index=index)
+        got3 = K.slab_refine(*args3, n_rows=n_rows, chunk_rows=rows, index=index)
         torch.cuda.synchronize()
         assert torch.equal(got2, ref2) and torch.equal(got3, ref3), rows
         flat = got3.reshape(-1).cpu().numpy()
@@ -384,7 +394,7 @@ def test_k2_k3_chunk_heights_bit_equal_on_the_sweeps_seams(cuda, n_rows):
     assert all(counts[f"{k}:chunk_rows={r}"] == 1 for r in (16, 24, 48)
                for k in ("slab_refine", "slab_refine_fused"))
     with pytest.raises(ValueError, match="chunk_rows"):
-        K.slab_refine(*args3, n_rows=n_rows, chunk_rows=32)
+        K.slab_refine(*args3, n_rows=n_rows, chunk_rows=32, index=index)
 
 
 def test_chunk_height_over_shared_memory_is_refused_with_its_bytes(cuda):
@@ -395,12 +405,14 @@ def test_chunk_height_over_shared_memory_is_refused_with_its_bytes(cuda):
     args = [torch.as_tensor(a, device=cuda) for a in K.build_direct_arrays(lut, u, v)]
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     feats = torch.as_tensor(np.tile(np.float32([-20, 1, 1, 10]), (128, 1)), device=cuda)
-    base = K.slab_refine(*args, feats, one * 0, one * 16, one)
-    assert torch.equal(K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=16), base)
+    index = identity(feats)
+    base = K.slab_refine(*args, feats, one * 0, one * 16, one, index=index)
+    assert torch.equal(K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=16,
+                                     index=index), base)
     need = K.slab_smem_bytes(420, K.SLAB_ROWS, 48)
     assert need > 227 * 1024
     with pytest.raises(ValueError, match=f"needs {need} bytes"):
-        K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=48)
+        K.slab_refine(*args, feats, one * 0, one * 16, one, chunk_rows=48, index=index)
 
 
 def test_k6_tensor_cores_flip_only_near_ties(cuda):
@@ -499,11 +511,12 @@ def test_fused_equals_exact_on_card(cuda):
 
 def test_kernel_wrappers_raise_not_fall_back(cuda):
     feats = torch.zeros((256, 8), device=cuda)[:, :4]  # non-contiguous
+    ix = {n: torch.arange(n, device=cuda) for n in (64, 128, 256)}  # identity indices
     with pytest.raises(ValueError, match="contiguous"):
         K.group_argmin(torch.zeros((1, 2, 2), device=cuda), torch.zeros((2, 2), device=cuda),
                        torch.zeros((2, 2), device=cuda),
                        torch.zeros(2, dtype=torch.int32, device=cuda), feats,
-                       torch.zeros(1, dtype=torch.int64, device=cuda), 1)
+                       torch.zeros(1, dtype=torch.int64, device=cuda), 1, index=ix[256])
     rng = np.random.default_rng(2)
     lut, wspd, phir, u, v, crlut, crw = _operands(rng, n_inc=2)
     lut_pad, u_pad, v_pad = (torch.as_tensor(a, device=cuda)
@@ -515,33 +528,36 @@ def test_kernel_wrappers_raise_not_fall_back(cuda):
            torch.zeros((128, 8), device=cuda))
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="sband"):
-        K.slab_refine_fused(*ops, one * 2, one * 0, one)  # band 2 of a 2-band LUT
+        K.slab_refine_fused(*ops, one * 2, one * 0, one, index=ix[128])  # band 2 of 2 bands
     with pytest.raises(ValueError, match="srow0"):
-        K.slab_refine_fused(*ops, one * 0, one * (wp - K.SLAB_ROWS + 1), one)
+        K.slab_refine_fused(*ops, one * 0, one * (wp - K.SLAB_ROWS + 1), one, index=ix[128])
     feats4 = torch.zeros((128, 4), device=cuda)
     with pytest.raises(ValueError, match="sband"):
-        K.slab_refine(*ops[:3], feats4, one * 2, one * 0, one)
+        K.slab_refine(*ops[:3], feats4, one * 2, one * 0, one, index=ix[128])
     with pytest.raises(ValueError, match="srow0"):
-        K.slab_refine(*ops[:3], feats4, one * 0, one * (wp - K.SLAB_ROWS + 1), one)
+        K.slab_refine(*ops[:3], feats4, one * 0, one * (wp - K.SLAB_ROWS + 1), one,
+                      index=ix[128])
     with pytest.raises(ValueError, match="blocks of 128"):  # the sweep's layout is fixed
         K.slab_refine(*ops[:3], torch.zeros((64, 4), device=cuda), one * 0, one * 0, one,
-                      block=64)
+                      block=64, index=ix[64])
     with pytest.raises(ValueError, match="blocks of 128"):
         K.slab_refine_fused(*ops[:7], torch.zeros((64, 8), device=cuda), one * 0, one * 0, one,
-                            block=64)
+                            block=64, index=ix[64])
     with pytest.raises(ValueError, match="band_of_block"):
-        K.crosspol_argmin(*ops[5:7], torch.zeros((256, 4), device=cuda), one * 2)
+        K.crosspol_argmin(*ops[5:7], torch.zeros((256, 4), device=cuda), one * 2, index=ix[256])
     with pytest.raises(ValueError, match="blocks of 256"):  # K1's and K4's layouts are fixed
-        K.crosspol_argmin(*ops[5:7], torch.zeros((128, 4), device=cuda), one * 0, block=128)
+        K.crosspol_argmin(*ops[5:7], torch.zeros((128, 4), device=cuda), one * 0, block=128,
+                          index=ix[128])
     coarse = [torch.as_tensor(a, device=cuda) for a in K.build_coarse_arrays(lut, u, v, 4, 4)[:4]]
     with pytest.raises(ValueError, match="blocks of 256"):
-        K.group_argmin(*coarse, torch.zeros((128, 4), device=cuda), one * 0, 8, block=128)
+        K.group_argmin(*coarse, torch.zeros((128, 4), device=cuda), one * 0, 8, block=128,
+                       index=ix[128])
     with pytest.raises(ValueError, match="must not decrease"):
         K.group_argmin(*coarse[:3], coarse[3].flip(0).contiguous(),
-                       torch.zeros((256, 4), device=cuda), one * 0, 8)
+                       torch.zeros((256, 4), device=cuda), one * 0, 8, index=ix[256])
     with pytest.raises(ValueError, match="aligned"):
         K.crosspol_argmin(*ops[5:7], torch.zeros(256 * 4 + 1, device=cuda)[1:].reshape(256, 4),
-                          one * 0)
+                          one * 0, index=ix[256])
 
 
 def _prep_scene(ny=96, nx=640, seed=9):
@@ -858,7 +874,8 @@ def _streamed_both_ways(args, radii, n_blocks):
     and rows staged per block."""
     swept = [torch.zeros((n_blocks, 3), dtype=torch.int32, device=args[0].device)
              for _ in range(2)]
-    got = [K.group_argmin_streamed(*args, radii=radii, swept=s, _prune=p)
+    index = identity(args[4])  # rows in slot order
+    got = [K.group_argmin_streamed(*args, index=index, radii=radii, swept=s, _prune=p)
            for s, p in zip(swept, (True, False))]
     return got, swept
 
@@ -876,11 +893,12 @@ def test_k1_streamed_bit_equal_to_plain_version(cuda, n_cols):
         args = cases.args(cuda)
         (got, got_all), swept = _streamed_both_ways(args, cases.radii(cuda),
                                                     cases.band_of_block.shape[0])
-        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2)
+        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2,
+                                    index=cases.index(cuda))
         torch.cuda.synchronize()
         assert torch.equal(got, ref) and torch.equal(got_all, ref)
         if staged:
-            assert torch.equal(K.group_argmin(*args), ref)
+            assert torch.equal(K.group_argmin(*args, index=cases.index(cuda)), ref)
         assert not _wrong(got.reshape(-1).cpu().numpy(), cases.expected)
         assert (swept[0][:, 0] <= swept[1][:, 0]).all()
     if n_cols == 181:
@@ -889,12 +907,13 @@ def test_k1_streamed_bit_equal_to_plain_version(cuda, n_cols):
         args = (*(torch.as_tensor(a, device=cuda) for a in ops[:6]), ops[6])
         radii = torch.as_tensor(K.build_chunk_radii(ops[1], ops[2]), device=cuda)
         (got, got_all), _ = _streamed_both_ways(args, radii, ops[5].shape[0])
-        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2)
+        ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=2,
+                                    index=identity(args[4]))
         torch.cuda.synchronize()
         assert torch.equal(got, ref) and torch.equal(got_all, ref)
         assert not _wrong(got.reshape(-1).cpu().numpy(), expected)
         with pytest.raises(ValueError, match="does not fit"):
-            K.group_argmin(*args)
+            K.group_argmin(*args, index=identity(args[4]))
     counts = K.launch_counts()
     assert counts["group_argmin"] == 1 and counts["group_argmin_streamed"] == 4 + 2 * (n_cols == 181)
 
@@ -913,7 +932,7 @@ def test_k1_streamed_prune_schedule_on_card(cuda, case):
     (got, got_all), swept = _streamed_both_ways(args, cases.radii(cuda),
                                                 cases.band_of_block.shape[0])
     cpu_args = cases.args("cpu")
-    ref = K._group_argmin_plain(*cpu_args, block=K.GROUP_BLOCK)
+    ref = K._group_argmin_plain(*cpu_args, block=K.GROUP_BLOCK, index=cases.index("cpu"))
     model, model_swept = K._group_argmin_pruned_model(*cpu_args, cases.radii("cpu"))
     _, model_all = K._group_argmin_pruned_model(*cpu_args, cases.radii("cpu"), prune=False)
     assert torch.equal(got.cpu(), ref) and torch.equal(got_all.cpu(), ref)
@@ -956,10 +975,12 @@ def test_k2_k3_at_32_rows_bit_equal_on_the_sweeps_seams(cuda, n_phi):
     the slab start is checked against the slab's height."""
     cases = seam_cases(n_phi=n_phi, n_rows=K.EXACT_SLAB_ROWS)
     args2, args3 = cases.k2_args(cuda), cases.k3_args(cuda)
-    got2 = K.slab_refine_fused(*args2, n_rows=32)
-    got3 = K.slab_refine(*args3, n_rows=32)
-    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=32)
-    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=32)
+    index = cases.index(cuda)
+    got2 = K.slab_refine_fused(*args2, n_rows=32, index=index)
+    got3 = K.slab_refine(*args3, n_rows=32, index=index)
+    ref2 = K._slab_refine_fused_plain(*args2, has_cr=True, block=K.SLAB_BLOCK, n_rows=32,
+                                      index=index)
+    ref3 = K._slab_refine_plain(*args3, block=K.SLAB_BLOCK, n_rows=32, index=index)
     torch.cuda.synchronize()
     assert torch.equal(got2, ref2) and torch.equal(got3, ref3)
     flat = got3.reshape(-1).cpu().numpy()
@@ -967,11 +988,12 @@ def test_k2_k3_at_32_rows_bit_equal_on_the_sweeps_seams(cuda, n_phi):
     wp = args3[0].shape[1]
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     feats4 = torch.zeros((128, 4), device=cuda)
-    K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 32), one, n_rows=32)
+    ix = identity(feats4)
+    K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 32), one, n_rows=32, index=ix)
     with pytest.raises(ValueError, match="srow0"):
-        K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 31), one, n_rows=32)
+        K.slab_refine(*args3[:3], feats4, one * 0, one * (wp - 31), one, n_rows=32, index=ix)
     with pytest.raises(ValueError, match="n_rows"):
-        K.slab_refine(*args3[:3], feats4, one * 0, one * 0, one, n_rows=wp + 8)
+        K.slab_refine(*args3[:3], feats4, one * 0, one * 0, one, n_rows=wp + 8, index=ix)
 
 
 def _gmf_pixels(n, seed):
@@ -1287,10 +1309,10 @@ def test_memmapped_scene_through_the_lanes_equals_serial_on_card(cuda, tmp_path)
                                   "slab_refine", "crosspol_argmin"])
 def test_indexed_kernel_bit_equal_to_the_kernel_on_the_copied_rows(cuda, name):
     """K1-K4 reading their rows through the bucket permutation (``index=``)
-    against the same kernel on the slot-order copy the fused path used to
-    make, its results scattered back (``_bucket_copies``), at 2^22 + 57 px:
-    a partial last block, padding slots, a coast of NaN s0; K1 reads an
-    8-float table as 4."""
+    against the same kernel through the identity permutation on the
+    slot-order copy the fused path used to make, its results scattered back
+    (``_bucket_copies``), at 2^22 + 57 px: a partial last block, padding
+    slots, a coast of NaN s0; K1 reads an 8-float table as 4."""
     from _bucket_copies import kernel_case, run_both, same_bits
 
     n = (1 << 22) + 57
@@ -1305,9 +1327,9 @@ def test_indexed_kernel_bit_equal_to_the_kernel_on_the_copied_rows(cuda, name):
 
 
 def test_indexed_rows_table_checked_on_card(cuda):
-    """The indexed forms refuse a rows table too narrow, one K1 and K4 cannot
-    read as 16-byte rows, an index of another dtype or length, and a K2/K3
-    chunk height their indexed form is not built for."""
+    """The kernels refuse a rows table too narrow, one K1 and K4 cannot read
+    as 16-byte rows and an index of another dtype or length; K3 through the
+    permutation gives the same bits at every chunk height."""
     from _bucket_copies import kernel_case
 
     args, kw = kernel_case("group_argmin", 1000, cuda)
@@ -1321,8 +1343,9 @@ def test_indexed_rows_table_checked_on_card(cuda):
     with pytest.raises(ValueError, match="index"):
         K.group_argmin(*args[:4], rows, *args[5:], index=perm[1:])
     args, kw = kernel_case("slab_refine", 1000, cuda)
-    with pytest.raises(ValueError, match="chunk_rows=8"):
-        K.slab_refine(*args, **kw, chunk_rows=16)
+    base = K.slab_refine(*args, **kw)
+    for rows in K.CHUNK_ROWS:
+        assert torch.equal(K.slab_refine(*args, **kw, chunk_rows=rows), base), rows
     args, kw = kernel_case("crosspol_argmin", 1000, cuda)
     with pytest.raises(ValueError, match="16-byte"):
         K.crosspol_argmin(*args[:2], torch.zeros((1000, 5), device=cuda), args[3], **kw)
@@ -1335,8 +1358,8 @@ def test_fused_call_reads_through_the_permutation_on_card(cuda, cell, tmp_path, 
     configuration at 10^8 px) inverted on the card as the cell calls it: the
     winds equal bit for bit those of the same call with K1-K4 in their
     copying forms (the fused path before they read through the bucket
-    permutation), and the call's record shows no copy (``rows_gathered`` 0)
-    and every slot launched read through an index (``perm_rows_read``)."""
+    permutation), and the call's record shows every slot launched read
+    through an index (``perm_rows_read``)."""
     from pathlib import Path
 
     from _bucket_copies import copying_kernels, same_bits
@@ -1363,7 +1386,6 @@ def test_fused_call_reads_through_the_permutation_on_card(cuda, cell, tmp_path, 
         co, dual = resident.invert(program, placed)
     monkeypatch.undo()
     rec, = tr.calls
-    assert rec["rows_gathered"] == 0
     assert rec["perm_rows_read"] == sum(slots) > placed["inc"].numel()
     with monkeypatch.context() as m:
         copying_kernels(m)

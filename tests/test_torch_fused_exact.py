@@ -207,7 +207,8 @@ def test_group_argmin_plain_full_grid_matches_brute_force():
     feats[2, 0] = np.nan
     feats[300:] = np.nan  # padding, whole and partial blocks
     got = K.group_argmin(*(torch.as_tensor(a) for a in (lut_c, u_c, v_c, row_group)),
-                         torch.as_tensor(feats), torch.as_tensor(band), n_groups).numpy()
+                         torch.as_tensor(feats), torch.as_tensor(band), n_groups,
+                         index=torch.arange(nb * 256)).numpy()
     for p in range(nb * 256):
         s0, ma2, mz2, inv_d = (np.float32(x) for x in feats[p])
         with np.errstate(invalid="ignore", over="ignore"):
@@ -229,8 +230,9 @@ def test_slab_plain_32_rows_matches_pallas_on_seams(n_phi):
     the cases' designed answers."""
     cases = seam_cases(n_phi=n_phi, n_rows=K.EXACT_SLAB_ROWS)
     assert cases.n_rows == 32
-    got3 = K.slab_refine(*cases.k3_args("cpu"), n_rows=32).numpy()
-    flat = got3.reshape(-1)
+    got3 = K.slab_refine(*cases.k3_args("cpu"), n_rows=32, index=cases.index("cpu")).numpy()
+    flat = got3
+    got3 = got3.reshape(-1, K.SLAB_BLOCK)  # the reference's blocks
     assert all(flat[s] == e for s, e in cases.expected.items())
     assert len(cases.expected) > 700
     live = cases.vmask == 1
@@ -247,8 +249,9 @@ def test_slab_plain_32_rows_matches_pallas_on_seams(n_phi):
         *(jnp.asarray(a) for a in ops), jnp.asarray(cases.feats), jnp.asarray(cases.sband),
         jnp.asarray(cases.srow0), n_phi, n_rows=32, has_cr=True, interpret=True,
         valid_mask=jnp.asarray(cases.vmask)))
-    got2 = K.slab_refine_fused(*cases.k2_args("cpu"), n_rows=32).numpy()
-    np.testing.assert_array_equal(got2[live], ref2[live])
+    got2 = K.slab_refine_fused(*cases.k2_args("cpu"), n_rows=32, index=cases.index("cpu")).numpy()
+    got2 = got2.reshape(3, -1, K.SLAB_BLOCK).transpose(1, 0, 2)  # the reference's rows per block
+    np.testing.assert_array_equal(got2[live], ref2[live][:, :3])
 
 
 @pytest.mark.parametrize("n_rows", [32, 40, 48, 64])
@@ -272,11 +275,12 @@ def test_plain_slab_rows_argument_checked():
     lut, u, v = cases.lut, cases.u, cases.v
     cases.feats[0, :4] = lut[0, 40, 3], u[40, 3] * 0.5, v[40, 3] * 0.5, 10.0  # cost 0 at row 40
     assert cases.sband[0] == 0 and cases.srow0[0] == 0
-    default = K.slab_refine(*cases.k3_args("cpu")).numpy()
-    np.testing.assert_array_equal(default, K.slab_refine(*cases.k3_args("cpu"),
-                                                         n_rows=48).numpy())
-    assert default[0, 0] == 40 * 37 + 3  # inside 48 rows, outside 32
-    assert K.slab_refine(*cases.k3_args("cpu"), n_rows=32).numpy()[0, 0] < 32 * 37
+    index = cases.index("cpu")
+    default = K.slab_refine(*cases.k3_args("cpu"), index=index).numpy()
+    np.testing.assert_array_equal(default, K.slab_refine(*cases.k3_args("cpu"), n_rows=48,
+                                                         index=index).numpy())
+    assert default[0] == 40 * 37 + 3  # inside 48 rows, outside 32
+    assert K.slab_refine(*cases.k3_args("cpu"), n_rows=32, index=index).numpy()[0] < 32 * 37
     assert K.k1_staged_fits(64, 46) and not K.k1_staged_fits(499, 181)
 
 

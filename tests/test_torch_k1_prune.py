@@ -157,7 +157,8 @@ def test_group_radii_hold_every_cell():
 def _model_vs_plain(cases, chunk_blocks=4):
     args = cases.args("cpu")
     radii = cases.radii("cpu")
-    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=chunk_blocks)
+    ref = K._group_argmin_plain(*args, block=K.GROUP_BLOCK, chunk_blocks=chunk_blocks,
+                                index=cases.index("cpu"))
     got, swept = K._group_argmin_pruned_model(*args, radii)
     got_all, swept_all = K._group_argmin_pruned_model(*args, radii, prune=False)
     assert torch.equal(got, ref) and torch.equal(got_all, ref)
@@ -236,7 +237,8 @@ def test_model_on_random_bench_blocks():
     counts = []
     for order in (np.argsort(np.hypot(feats[:, 1], feats[:, 2]), kind="stable"), np.arange(n)):
         f = torch.as_tensor(feats[order])
-        ref = K._group_argmin_plain(*args, f, bob, n_groups, K.GROUP_BLOCK)
+        ref = K._group_argmin_plain(*args, f, bob, n_groups, K.GROUP_BLOCK,
+                                    index=torch.arange(n))
         got, swept = K._group_argmin_pruned_model(*args, f, bob, n_groups, torch.as_tensor(radii))
         assert torch.equal(got, ref)
         counts.append(int(swept[:, 0].sum()))

@@ -4,7 +4,9 @@ coarse pass's contract with the exact path. K2, K3 and K4 are held bit for
 bit, NaN sentinels and first-minimum ties included.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
-holds them against these plain versions there.
+holds them against these plain versions there. The operands here are in
+slot order already: the kernels read them through the identity permutation,
+so K2-K4's pixel-order results are in slot order too.
 """
 
 import numpy as np
@@ -24,6 +26,11 @@ from xsarsea_tpu_torch.windspeed.inversion import InversionTables, _first_argmin
 # tier-1 runs six pytest workers on one host: two torch threads each keep
 # them from oversubscribing its cores
 torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
+def _identity(n):
+    """The index of ``n`` rows already in slot order."""
+    return torch.arange(n)
 
 
 def _slab_case(seed, n_inc=5, n_wspd=90, n_phi=181, n_cr=60, nb=6):
@@ -75,13 +82,14 @@ def test_slab_refine_fused_plain_bit_equal_to_pallas(seed):
         valid_mask=jnp.ones(nb, jnp.int32)))
     got = K.slab_refine_fused(*(torch.as_tensor(a) for a in port_ops), torch.as_tensor(feats),
                               torch.as_tensor(sband), torch.as_tensor(srow0),
-                              torch.ones(nb, dtype=torch.int32)).numpy()
+                              torch.ones(nb, dtype=torch.int32),
+                              index=_identity(feats.shape[0])).numpy()
     # expected bit-equal: the same f32 op sequence, the same first-minimum
-    # rule and the same NaN poisoning
-    np.testing.assert_array_equal(got, ref)
-    poisoned = got[0, 0] == 0  # band 2's NaN LUT entry inside block 0's slab
-    assert poisoned.any() and (got[0, 1][poisoned] == 0).all()
-    flat = got.transpose(0, 2, 1).reshape(-1, 4)
+    # rule and the same NaN poisoning; the reference's rows per block
+    np.testing.assert_array_equal(got, ref[:, :3].transpose(1, 0, 2).reshape(3, -1))
+    poisoned = got[0, :K.SLAB_BLOCK] == 0  # band 2's NaN LUT entry inside block 0's slab
+    assert poisoned.any() and (got[1, :K.SLAB_BLOCK][poisoned] == 0).all()
+    flat = got.T
     assert (flat[200, :2] == 0).all() and flat[201, 2] > 0 and flat[202, 2] == 0
 
 
@@ -98,7 +106,8 @@ def test_slab_refine_fused_plain_copol_only_and_skipped_blocks():
     got = K.slab_refine_fused(*(torch.as_tensor(a) for a in port_ops[:5]),
                               torch.zeros((1, 1)), torch.zeros(1), torch.as_tensor(feats),
                               torch.as_tensor(sband), torch.as_tensor(srow0), vmask,
-                              has_cr=False).numpy()
+                              has_cr=False, index=_identity(feats.shape[0])).numpy()
+    got = got.reshape(3, nb, K.SLAB_BLOCK).transpose(1, 0, 2)  # the reference's rows per block
     keep = np.arange(nb) != 4
     np.testing.assert_array_equal(got[keep, :2], ref[keep, :2])
     assert (got[:, 2:] == 0).all() and (got[4] == 0).all()
@@ -151,8 +160,8 @@ def test_slab_refine_plain_bit_equal_to_pallas(seed):
         jnp.asarray(sband), jnp.asarray(srow0), n_phi, n_rows=K.SLAB_ROWS, interpret=True,
         valid_mask=jnp.asarray(vmask)))
     got = K.slab_refine(*(torch.as_tensor(a) for a in port), torch.as_tensor(feats),
-                        torch.as_tensor(sband), torch.as_tensor(srow0),
-                        torch.as_tensor(vmask)).numpy()
+                        torch.as_tensor(sband), torch.as_tensor(srow0), torch.as_tensor(vmask),
+                        index=_identity(feats.shape[0])).numpy().reshape(-1, K.SLAB_BLOCK)
     # expected bit-equal on every block that runs: the same f32 op sequence,
     # the same first-minimum rule and the same sentinels
     live = vmask == 1
@@ -198,9 +207,10 @@ def test_crosspol_argmin_plain_bit_equal_to_pallas(seed):
         *(jnp.asarray(a) for a in jpi.build_crosspol_arrays(crlut, crw)), jnp.asarray(feats),
         jnp.asarray(band), block=K.CR_BLOCK, interpret=True))
     got = K.crosspol_argmin(*(torch.as_tensor(a) for a in K.build_crosspol_arrays(crlut, crw)),
-                            torch.as_tensor(feats), torch.as_tensor(band)).numpy()
-    np.testing.assert_array_equal(got, ref)
-    flat = got.reshape(-1)
+                            torch.as_tensor(feats), torch.as_tensor(band),
+                            index=_identity(feats.shape[0])).numpy()
+    np.testing.assert_array_equal(got, ref.reshape(-1))
+    flat = got
     assert (flat[:4] == crw[10]).all()  # first minimum of the tied pair
     assert flat[7] == 0 and flat[8] == 0 and flat[9] > 0 and (flat[-20:] == 0).all()
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
@@ -235,7 +245,8 @@ def test_group_argmin_plain_matches_loop():
     feats[7] = np.nan
     band = rng.integers(0, 4, nb)
     got = K.group_argmin(*(torch.as_tensor(a) for a in (lut_c, u_c, v_c, row_group)),
-                         torch.as_tensor(feats), torch.as_tensor(band), n_groups, block=block)
+                         torch.as_tensor(feats), torch.as_tensor(band), n_groups, block=block,
+                         index=_identity(feats.shape[0]))
     ref = _group_argmin_loop(lut_c, u_c, v_c, row_group, feats, band, n_groups, block)
     np.testing.assert_array_equal(got.numpy().reshape(-1), ref)
     assert got.dtype == torch.int32 and got.reshape(-1)[7] == n_groups - 1
@@ -265,9 +276,8 @@ def test_group_argmin_slab_holds_exact_argmin_row(seed):
     perm, bob = bucket_by_value(f32(inc), keys, lut.shape[0], K.GROUP_BLOCK)
     pix = torch.stack([f32(s0), f32(anc.real) * 0.5, f32(np.abs(anc.imag)) * 0.5,
                        torch.full((n,), 1.0 / np.float32(0.1))], 1)
-    feats = torch.where((perm >= 0)[:, None], pix[perm.clamp(min=0)], float("nan"))
     gslot = K.group_argmin(*(torch.as_tensor(a) for a in (lut_c, u_c, v_c, row_group)),
-                           feats, bob, n_groups).reshape(-1)
+                           pix, bob, n_groups, index=perm).reshape(-1)
     group = torch.empty(n, dtype=torch.int64)
     group[perm[perm >= 0]] = gslot[perm >= 0].to(torch.int64)
 
@@ -295,16 +305,48 @@ def test_kernel_build_dir_in_checkout_or_user_cache(tmp_path, monkeypatch):
     assert K._build_dir() == tmp_path / "cache" / "xsarsea_tpu_torch" / "kernels"
 
 
+def test_main_and_experiment_libraries_split_the_sources():
+    """The main path's library is built from K1-K4's and the merge's sources,
+    the experiment library from the others: the two tuples are disjoint and
+    cover every ``csrc/*.cu``; each library's entry points are the
+    ``extern "C"`` functions of its own sources; the main module names none
+    of the experiment entry points; a build's hash reads a source and the
+    headers it includes."""
+    import re
+    from pathlib import Path
+
+    from xsarsea_tpu_torch.ops import experiment_kernels as E
+
+    main, experiments = set(K._SOURCES), set(E._SOURCES)
+    assert main == {"group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
+                    "crosspol_argmin.cu", "dual_merge.cu"}
+    assert main.isdisjoint(experiments)
+    assert main | experiments == {p.name for p in K._CSRC.glob("*.cu")}
+
+    def defined(sources):
+        text = "".join((K._CSRC / src).read_text() for src in sources)
+        return set(re.findall(r'extern "C" [^(]*?\b(xs_\w+)\(', text))
+
+    assert defined(K._SOURCES) == set(K._ENTRIES) | {"xs_error_string"}
+    assert defined(E._SOURCES) == set(E._ENTRIES) | {"xs_error_string"}
+    main_text = Path(K.__file__).read_text()
+    assert not [entry for entry in E._ENTRIES if entry in main_text]
+    assert K._included("slab_refine.cu") == ["slab_refine.cu", "inversion_common.cuh"]
+    assert K._included("dual_merge.cu") == ["dual_merge.cu"]
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((256, 4), device="meta")
     with pytest.raises(ValueError, match="device"):
         K.group_argmin(torch.empty(1, 1, 1), torch.empty(1, 1), torch.empty(1, 1),
-                       torch.zeros(1, dtype=torch.int32), meta, torch.zeros(1), 1)
+                       torch.zeros(1, dtype=torch.int32), meta, torch.zeros(1), 1,
+                       index=_identity(256))
     with pytest.raises(ValueError, match="device"):
         K.slab_refine_fused(*(torch.empty(1),) * 7, torch.empty((128, 8), device="meta"),
-                            *(torch.zeros(1, dtype=torch.int32),) * 3)
+                            *(torch.zeros(1, dtype=torch.int32),) * 3, index=_identity(128))
     with pytest.raises(ValueError, match="device"):
         K.slab_refine(*(torch.empty(1),) * 3, torch.empty((128, 4), device="meta"),
-                      *(torch.zeros(1, dtype=torch.int32),) * 3)
+                      *(torch.zeros(1, dtype=torch.int32),) * 3, index=_identity(128))
     with pytest.raises(ValueError, match="device"):
-        K.crosspol_argmin(torch.empty(1, 1), torch.empty(1), meta, torch.zeros(1))
+        K.crosspol_argmin(torch.empty(1, 1), torch.empty(1), meta, torch.zeros(1),
+                          index=_identity(256))

@@ -130,8 +130,10 @@ def test_direct_form_is_slab_refine():
                                                            0.1)[:3]]
     rest = [torch.as_tensor(c["feats"]["direct"])] + [torch.as_tensor(c[k]) for k in
                                                       ("sband", "srow0", "vmask")]
-    np.testing.assert_array_equal(E.slab_forms("direct", *ops, None, *rest).numpy(),
-                                  K._slab_refine_plain(*ops, *rest, block=K.SLAB_BLOCK).numpy())
+    index = torch.arange(rest[0].shape[0])  # K3 reads the slot-order rows through the identity
+    np.testing.assert_array_equal(
+        E.slab_forms("direct", *ops, None, *rest).numpy().reshape(-1),
+        K._slab_refine_plain(*ops, *rest, block=K.SLAB_BLOCK, index=index).numpy())
 
 
 def test_build_form_arrays():
@@ -173,8 +175,9 @@ def test_bench_slab_forms_main_on_cpu(capsys):
     slots = res["slots"]
     assert slots % K.SLAB_BLOCK == 0 and args[5].shape == (slots, 4)
     # the direct form is K3 on the same arguments
-    np.testing.assert_array_equal(forms["direct"]["out"].numpy(),
-                                  K.slab_refine(*args[1:4], *args[5:]).numpy())
+    np.testing.assert_array_equal(forms["direct"]["out"].numpy().reshape(-1),
+                                  K.slab_refine(*args[1:4], *args[5:],
+                                                index=torch.arange(slots)).numpy())
     for form, r in forms.items():
         assert r["out"].shape == (slots // K.SLAB_BLOCK, K.SLAB_BLOCK)
     for form, f in res["flips"].items():

@@ -28,7 +28,7 @@ def cases(request):
 
 
 def test_plain_k3_gives_the_designed_answers(cases):
-    got = K.slab_refine(*cases.k3_args("cpu")).numpy().reshape(-1)
+    got = K.slab_refine(*cases.k3_args("cpu"), index=cases.index("cpu")).numpy().reshape(-1)
     wrong = {s: (int(got[s]), e) for s, e in cases.expected.items() if got[s] != e}
     assert not wrong
     assert (got.reshape(-1, K.SLAB_BLOCK)[cases.vmask == 0] == 0).all()
@@ -40,7 +40,8 @@ def test_plain_k3_bit_equal_to_pallas_on_seams(cases):
         *(jnp.asarray(a) for a in jpi.build_direct_arrays(cases.lut, cases.u, cases.v)),
         jnp.asarray(cases.feats[:, :4]), jnp.asarray(cases.sband), jnp.asarray(cases.srow0),
         cases.n_phi, n_rows=K.SLAB_ROWS, interpret=True, valid_mask=jnp.asarray(cases.vmask)))
-    got = K.slab_refine(*cases.k3_args("cpu")).numpy()
+    got = K.slab_refine(*cases.k3_args("cpu"), index=cases.index("cpu")).numpy()
+    got = got.reshape(-1, K.SLAB_BLOCK)  # the reference's blocks
     live = cases.vmask == 1  # the TPU kernel leaves skipped blocks unwritten
     np.testing.assert_array_equal(got[live], ref[live])
 
@@ -54,14 +55,15 @@ def test_plain_k2_bit_equal_to_pallas_on_seams(cases):
         *(jnp.asarray(a) for a in ops), jnp.asarray(cases.feats), jnp.asarray(cases.sband),
         jnp.asarray(cases.srow0), cases.n_phi, n_rows=K.SLAB_ROWS, has_cr=True, interpret=True,
         valid_mask=jnp.asarray(cases.vmask)))
-    got = K.slab_refine_fused(*cases.k2_args("cpu")).numpy()
+    got = K.slab_refine_fused(*cases.k2_args("cpu"), index=cases.index("cpu")).numpy()
+    got = got.reshape(3, -1, K.SLAB_BLOCK).transpose(1, 0, 2)  # the reference's rows per block
     live = cases.vmask == 1
-    np.testing.assert_array_equal(got[live], ref[live])
+    np.testing.assert_array_equal(got[live], ref[live][:, :3])
 
 
 def test_plain_k2_decodes_k3s_winners_and_solves_crosspol_without_copol(cases):
-    k2 = K.slab_refine_fused(*cases.k2_args("cpu")).numpy().transpose(0, 2, 1).reshape(-1, 4)
-    k3 = K.slab_refine(*cases.k3_args("cpu")).numpy().reshape(-1)
+    k2 = K.slab_refine_fused(*cases.k2_args("cpu"), index=cases.index("cpu")).numpy().T
+    k3 = K.slab_refine(*cases.k3_args("cpu"), index=cases.index("cpu")).numpy().reshape(-1)
     n_phi = cases.n_phi
     w_pad = cases.k2_args("cpu")[3].numpy()  # 0 on padding rows
     for s, idx in cases.expected.items():

@@ -39,7 +39,8 @@ def test_k3_plain_at_each_chunk_height_bit_equal_to_pallas_rows_per_iter(cases, 
         jnp.asarray(cases.feats[:, :4]), jnp.asarray(cases.sband), jnp.asarray(cases.srow0),
         cases.n_phi, n_rows=K.SLAB_ROWS, interpret=True, valid_mask=jnp.asarray(cases.vmask),
         rows_per_iter=rows))
-    got = K.slab_refine(*cases.k3_args("cpu"), chunk_rows=rows).numpy()
+    got = K.slab_refine(*cases.k3_args("cpu"), chunk_rows=rows, index=cases.index("cpu")).numpy()
+    got = got.reshape(-1, K.SLAB_BLOCK)  # the reference's blocks
     live = cases.vmask == 1  # the TPU kernel leaves skipped blocks unwritten
     np.testing.assert_array_equal(got[live], ref[live])
     assert all(got.reshape(-1)[s] == e for s, e in cases.expected.items())
@@ -48,15 +49,18 @@ def test_k3_plain_at_each_chunk_height_bit_equal_to_pallas_rows_per_iter(cases, 
 @pytest.mark.parametrize("chunk_rows", [0, 4, 12, 32, 64, "8", 8.5])
 def test_chunk_rows_outside_the_heights_raise(cases, chunk_rows):
     with pytest.raises(ValueError, match="chunk_rows"):
-        K.slab_refine(*cases.k3_args("cpu"), chunk_rows=chunk_rows)
+        K.slab_refine(*cases.k3_args("cpu"), chunk_rows=chunk_rows, index=cases.index("cpu"))
     with pytest.raises(ValueError, match="chunk_rows"):
-        K.slab_refine_fused(*cases.k2_args("cpu"), chunk_rows=chunk_rows)
+        K.slab_refine_fused(*cases.k2_args("cpu"), chunk_rows=chunk_rows,
+                            index=cases.index("cpu"))
 
 
 def test_every_height_gives_k2_the_same_bits(cases):
-    base = K.slab_refine_fused(*cases.k2_args("cpu"))
+    index = cases.index("cpu")
+    base = K.slab_refine_fused(*cases.k2_args("cpu"), index=index)
     for rows in K.CHUNK_ROWS:
-        assert torch.equal(K.slab_refine_fused(*cases.k2_args("cpu"), chunk_rows=rows), base)
+        assert torch.equal(K.slab_refine_fused(*cases.k2_args("cpu"), chunk_rows=rows,
+                                               index=index), base)
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)  # plain versions count nothing
 
 
@@ -91,7 +95,7 @@ def test_bench_slab_variants_main_on_cpu(capsys):
         assert all(r["equal"] and r["ms"] is None for r in runs.values())
     # K2's winners are K3's, decoded
     k3 = res["kernels"]["slab_refine"][8]["out"].reshape(-1)
-    k2 = res["kernels"]["slab_refine_fused"][8]["out"].permute(0, 2, 1).reshape(-1, 4)
+    k2 = res["kernels"]["slab_refine_fused"][8]["out"].T
     n_phi = k2_args[0].shape[2]
     valid = ~torch.isnan(k3_args[3][:, 0])  # not a padding slot
     hit = valid & (k3 < K._no_hit_flat(n_phi))

@@ -11,8 +11,7 @@
   ``record_function`` is entered; no call record is kept;
 * inside ``utils.trace``, one record per call, whose pieces and launches are
   the counters' changes, written into the trace file too; its
-  ``perm_rows_read`` the slots K1-K4 read through the bucket permutation,
-  its ``rows_gathered`` 0 (no bucket-ordered copy on the fused path);
+  ``perm_rows_read`` the slots K1-K4 read through the bucket permutation;
 * the kernel modules' ``launch_counts()`` and ``reset_launch_counts()`` keep
   their results on the shared counters, which lose no update under threads;
 * ``timing`` reads nothing when its log is off;
@@ -226,7 +225,6 @@ def test_trace_records_one_per_call(tables, tmp_path, monkeypatch):
         assert rec["seconds"] > 0 and rec["alloc_segments"] == 0
         assert rec["h2d_bytes"] == rec["d2h_bytes"] == 0  # no card: no copy counted
         assert rec["pinned_bytes"] == staging.pool().bytes
-        assert rec["rows_gathered"] == 0  # the fused path makes no bucket-ordered copy
     assert pix["perm_rows_read"] == sum(slots[:split[0]]) > 0
     assert model["perm_rows_read"] == sum(slots[split[0]:]) > 0
     assert doc["xs_calls"] == tr.calls

@@ -37,7 +37,8 @@ def make_scene(h, w, seed, device="cuda"):
 
 def main(device="cuda", h=96, w=128, n_scenes=3):
     dev = resolve_device(device)
-    name = f"cuda:{dev.index if dev.index is not None else torch.cuda.current_device()}" \
+    ordinal = dev.index
+    name = f"cuda:{ordinal if ordinal is not None else torch.cuda.current_device()}" \
         if dev.type == "cuda" else str(dev)
     mesh = make_mesh(2, 1, devices=[name] * 2)
     print(f"mesh: 2 x data, both {name} (one device named twice: a layout check)")

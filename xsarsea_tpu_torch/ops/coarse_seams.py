@@ -34,8 +34,9 @@ huge and negative ``dsig_cr``; NaN, zero and huge ``s0_cr``; a wind-speed
 row that does not ascend; padding groups.
 
 :func:`quotient_random_set` and :func:`quotient_edge_set` are the operand
-pairs on which the hoisted quotient (:func:`K.crosspol_quotient`) is held
-against the true divide on the card.
+pairs on which the hoisted quotient
+(``experiment_kernels.crosspol_quotient``) is held against the true divide
+on the card.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels against
 their plain versions on these cases; ``tests/test_torch_coarse_seams.py``
@@ -114,6 +115,11 @@ class CoarseSeamCases:
                self.band_of_block)
         return (*(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in ops),
                 self.n_groups)
+
+    def index(self, device):
+        """The kernels' ``index``: the identity permutation (the rows are in
+        slot order already)."""
+        return torch.arange(self.feats.shape[0], device=device)
 
     def radii(self, device):
         """The grid's chunk annuli, the ``radii`` of
@@ -443,6 +449,11 @@ class CrosspolSeamCases:
         """Positional arguments of :func:`K.crosspol_argmin`."""
         ops = (*K.build_crosspol_arrays(self.crlut, self.crw), self.feats, self.band_of_block)
         return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in ops)
+
+    def index(self, device):
+        """The kernel's ``index``: the identity permutation, so K4's speeds
+        come back in slot order."""
+        return torch.arange(self.feats.shape[0], device=device)
 
 
 # dsig_cr values of the seam pixels: the usual ones, the hoisted quotient's

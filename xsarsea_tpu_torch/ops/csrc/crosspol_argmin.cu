@@ -21,11 +21,10 @@
 // all NaN (padding) has only NaN costs and gets 0 without a sweep; the loop
 // is compiled per count of live groups (1-4).
 //
-// The features come in slot order (a bucket-ordered copy, a float4 a slot)
-// or, in the kernel's indexed form, through the bucket permutation: slot s
-// reads row index[s] of the pixel table (its first 4 floats, one 16-byte
-// load; NaN for a padding slot) and writes its speed into pixel order,
-// out[index[s]]; padding slots write nothing there.
+// The features come through the bucket permutation: slot s reads row
+// index[s] of the pixel table (its first 4 floats, one 16-byte load; NaN for
+// a padding slot) and writes its speed into pixel order, out[index[s]];
+// padding slots write nothing there.
 #include "inversion_common.cuh"
 
 namespace {
@@ -37,9 +36,9 @@ constexpr int kThreads = kPixels / kPix;
 
 // The G live 32-pixel groups (the set bits of live) of a warp's 128 slots,
 // the first of which is slot w0.
-template <int G, bool kIndexed>
+template <int G>
 __device__ __forceinline__ void solve_groups(const float* s_row, const float* s_wh, int n_cr,
-                                             const xs::Rows<kIndexed>& feats, int w0,
+                                             const xs::Rows& feats, int w0,
                                              unsigned live, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   int grp[G];
@@ -55,11 +54,10 @@ __device__ __forceinline__ void solve_groups(const float* s_row, const float* s_
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     const long long px = feats.pixel(w0 + 32 * grp[k] + lane);
-    if (px >= 0) out[px] = speed[k];  // slot order: every slot
+    if (px >= 0) out[px] = speed[k];
   }
 }
 
-template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads) crosspol_argmin_kernel(
     const float* __restrict__ cr_lut, const float* __restrict__ w_half,
     const float* __restrict__ feats, const long long* __restrict__ index, int stride,
@@ -74,10 +72,7 @@ __global__ void __launch_bounds__(kThreads) crosspol_argmin_kernel(
   const float* s_wh = smem + xs::crosspol::row_stride(n_cr);
 
   // features and results of the block's slots
-  const size_t slot0 = static_cast<size_t>(b) * kPixels;
-  const xs::Rows<kIndexed> f = kIndexed ? xs::Rows<kIndexed>{feats, stride, index + slot0}
-                                        : xs::Rows<kIndexed>{feats + slot0 * 4, 4};
-  float* out_b = kIndexed ? out : out + slot0;
+  const xs::Rows f{feats, stride, index + static_cast<size_t>(b) * kPixels};
   const int w0 = warp * kWarpPixels;
   unsigned live = 0;
 #pragma unroll
@@ -87,45 +82,32 @@ __global__ void __launch_bounds__(kThreads) crosspol_argmin_kernel(
     live |= static_cast<unsigned>(any) << k;
     if (!any) {  // every cost NaN
       const long long px = f.pixel(w0 + 32 * k + lane);
-      if (px >= 0) out_b[px] = 0.0f;
+      if (px >= 0) out[px] = 0.0f;
     }
   }
   switch (__popc(live)) {
-    case 1: solve_groups<1>(smem, s_wh, n_cr, f, w0, live, out_b); break;
-    case 2: solve_groups<2>(smem, s_wh, n_cr, f, w0, live, out_b); break;
-    case 3: solve_groups<3>(smem, s_wh, n_cr, f, w0, live, out_b); break;
-    case 4: solve_groups<4>(smem, s_wh, n_cr, f, w0, live, out_b); break;
+    case 1: solve_groups<1>(smem, s_wh, n_cr, f, w0, live, out); break;
+    case 2: solve_groups<2>(smem, s_wh, n_cr, f, w0, live, out); break;
+    case 3: solve_groups<3>(smem, s_wh, n_cr, f, w0, live, out); break;
+    case 4: solve_groups<4>(smem, s_wh, n_cr, f, w0, live, out); break;
     default: break;  // padding only
   }
 }
 
-template <bool kIndexed>
-int launch(const float* cr_lut, const float* w_half, const float* feats, const long long* index,
-           int stride, const int* band_of_block, float* out, int n_blocks, int n_cr,
-           cudaStream_t stream) {
-  const size_t smem = xs::crosspol::smem_bytes(n_cr);
-  cudaError_t err = xs::allow_smem(crosspol_argmin_kernel<kIndexed>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  crosspol_argmin_kernel<kIndexed><<<n_blocks, kThreads, smem, stream>>>(
-      cr_lut, w_half, feats, index, stride, band_of_block, out, n_cr);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// index: nullptr for features and results in slot order (a float4 a slot),
-// or the slot -> pixel permutation of the indexed form (feats the pixel
-// table, 16-byte aligned rows of stride floats, a multiple of 4; out (n_px,)
-// in pixel order).
+// index: the slot -> pixel permutation (-1 for padding); feats: the pixel
+// table, 16-byte aligned rows of stride floats, a multiple of 4; out: (n_px,)
+// in pixel order.
 extern "C" int xs_crosspol_argmin(const float* cr_lut, const float* w_half, const float* feats,
                                   const long long* index, int stride, const int* band_of_block,
                                   float* out, int n_blocks, int block, int n_cr, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (index != nullptr) {
-    return launch<true>(cr_lut, w_half, feats, index, stride, band_of_block, out, n_blocks, n_cr,
-                        s);
-  }
-  return launch<false>(cr_lut, w_half, feats, nullptr, 4, band_of_block, out, n_blocks, n_cr, s);
+  const size_t smem = xs::crosspol::smem_bytes(n_cr);
+  cudaError_t err = xs::allow_smem(crosspol_argmin_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  crosspol_argmin_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cr_lut, w_half, feats, index, stride, band_of_block, out, n_cr);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -108,14 +108,13 @@
 //    same code: the A/B and test switch.
 //
 // Features. Both forms read a block's features three times: the padding
-// test, the sweep and the merge. They take them in slot order (feats a
-// bucket-ordered copy, a float4 a slot) or, in their indexed form (the
-// inversion's path), through the bucket permutation: each thread loads its
-// slot's row of the pixel table (row index[slot], its first 4 floats in one
-// 16-byte load, NaN for a padding slot) once into shared memory (4 KB a
-// block: 49 KB staged, 76 KB streamed at the full grid, still three streamed
-// blocks an SM), and the three reads take them from there. The output stays
-// in slot order: the re-bucketing reads it slot by slot.
+// test, the sweep and the merge. They take them through the bucket
+// permutation: each thread loads its slot's row of the pixel table (row
+// index[slot], its first 4 floats in one 16-byte load, NaN for a padding
+// slot) once into shared memory (4 KB a block: 49 KB staged, 76 KB streamed
+// at the full grid, still three streamed blocks an SM), and the three reads
+// take them from there. The output stays in slot order: the re-bucketing
+// reads it slot by slot.
 #include "inversion_common.cuh"
 
 #include <climits>
@@ -132,8 +131,8 @@ constexpr int kThreads = 32 * kWarps;
 
 __host__ __device__ constexpr int row_stride(int n_cols) { return (n_cols + 3) & ~3; }
 
-// The indexed forms' gathered features: a float4 a slot, after the rest of
-// the block's shared memory (n_floats of it), 16-byte aligned.
+// The gathered features: a float4 a slot, after the rest of the block's
+// shared memory (n_floats of it), 16-byte aligned.
 __host__ __device__ constexpr size_t feats_offset(size_t n_floats) { return (n_floats + 3) & ~3; }
 constexpr size_t kFeatsFloats = 4 * static_cast<size_t>(kPixels);
 
@@ -141,27 +140,21 @@ __host__ __device__ inline size_t smem_floats(int n_rows, int n_cols) {
   return 3 * static_cast<size_t>(n_rows) * row_stride(n_cols) + 2 * kChains * kPixels + n_rows;
 }
 
-size_t smem_bytes(int n_rows, int n_cols, bool indexed) {
-  const size_t n = smem_floats(n_rows, n_cols);
-  return (indexed ? feats_offset(n) + kFeatsFloats : n) * sizeof(float);
+size_t smem_bytes(int n_rows, int n_cols) {
+  return (feats_offset(smem_floats(n_rows, n_cols)) + kFeatsFloats) * sizeof(float);
 }
 
-// The block's features, a float4 a slot (s0, ma/2, mz/2, 1/dsig): in slot
-// order, the block's rows of feats; indexed, gathered through the bucket
-// permutation into s_feats, thread t taking slot t (kThreads == kPixels, so
-// each thread reads its own slot back before the first barrier).
-template <bool kIndexed>
+// The block's features, a float4 a slot (s0, ma/2, mz/2, 1/dsig), gathered
+// through the bucket permutation into s_feats, thread t taking slot t
+// (kThreads == kPixels, so each thread reads its own slot back before the
+// first barrier).
 __device__ __forceinline__ const float4* block_feats(const float* __restrict__ feats,
                                                      const long long* __restrict__ index,
                                                      int stride, float4* s_feats) {
   static_assert(kThreads == kPixels, "a thread gathers one slot");
   const size_t slot0 = static_cast<size_t>(blockIdx.x) * kPixels;
-  if constexpr (kIndexed) {
-    s_feats[threadIdx.x] = xs::Rows<true>{feats, stride, index + slot0}.head4(threadIdx.x);
-    return s_feats;
-  } else {
-    return reinterpret_cast<const float4*>(feats) + slot0;
-  }
+  s_feats[threadIdx.x] = xs::Rows{feats, stride, index + slot0}.head4(threadIdx.x);
+  return s_feats;
 }
 
 // The block's staged operands: l, u/2, v/2 planes of n_rows x ld floats and
@@ -281,7 +274,6 @@ __device__ __forceinline__ void sweep_groups(const Coarse& t, int chain,
   }
 }
 
-template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads) group_argmin_kernel(
     const float* __restrict__ lut_c, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const int* __restrict__ row_group,
@@ -292,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) group_argmin_kernel(
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float4* feats_b = block_feats<kIndexed>(
+  const float4* feats_b = block_feats(
       feats, index, stride,
       reinterpret_cast<float4*>(smem + feats_offset(smem_floats(n_rows, n_cols))));
   int* out_b = out + static_cast<size_t>(b) * kPixels;
@@ -363,9 +355,8 @@ __host__ __device__ inline size_t streamed_smem_floats(int n_cols, int n_chunks)
          (kWarps + 2) * static_cast<size_t>(mask_words(n_chunks));
 }
 
-size_t streamed_smem_bytes(int n_cols, int n_chunks, bool indexed) {
-  const size_t n = streamed_smem_floats(n_cols, n_chunks);
-  return (indexed ? feats_offset(n) + kFeatsFloats : n) * sizeof(float);
+size_t streamed_smem_bytes(int n_cols, int n_chunks) {
+  return (feats_offset(streamed_smem_floats(n_cols, n_chunks)) + kFeatsFloats) * sizeof(float);
 }
 
 // Issue the copies of grid rows [row0, row0 + rows) of the band's LUT plane
@@ -589,7 +580,6 @@ __device__ __forceinline__ int nearest_chunk(const unsigned* masks, const unsign
   return abs(2 * down - center2) <= abs(2 * up - center2) ? down : up;
 }
 
-template <bool kIndexed>
 __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
     const float* __restrict__ lut_c, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const int* __restrict__ row_group,
@@ -602,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 3) group_argmin_streamed_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_chunks = (n_rows + kChunkRows - 1) / kChunkRows;
-  const float4* feats_b = block_feats<kIndexed>(
+  const float4* feats_b = block_feats(
       feats, index, stride,
       reinterpret_cast<float4*>(smem + feats_offset(streamed_smem_floats(n_cols, n_chunks))));
   int* out_b = out + static_cast<size_t>(b) * kPixels;
@@ -785,31 +775,21 @@ extern "C" const char* xs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// index: nullptr for features in slot order (feats a float4 a slot), or the
-// slot -> pixel permutation of the indexed form (feats the pixel table,
-// 16-byte aligned rows of stride floats, a multiple of 4, of which the first
-// 4 are read).
+// index: the slot -> pixel permutation (-1 for padding); feats: the pixel
+// table, 16-byte aligned rows of stride floats, a multiple of 4, of which the
+// first 4 are read.
 extern "C" int xs_group_argmin(const float* lut_c, const float* u_half, const float* v_half,
                                const int* row_group, const float* feats, const long long* index,
                                int stride, const int* band_of_block, int* out, int n_blocks,
                                int block, int n_rows, int n_cols, int n_groups, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const bool indexed = index != nullptr;
-  const size_t smem = smem_bytes(n_rows, n_cols, indexed);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = indexed ? xs::allow_smem(group_argmin_kernel<true>, smem)
-                            : xs::allow_smem(group_argmin_kernel<false>, smem);
+  const size_t smem = smem_bytes(n_rows, n_cols);
+  cudaError_t err = xs::allow_smem(group_argmin_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (indexed) {
-    group_argmin_kernel<true><<<n_blocks, kThreads, smem, s>>>(
-        lut_c, u_half, v_half, row_group, feats, index, stride, band_of_block, out, n_rows,
-        n_cols, n_groups);
-  } else {
-    group_argmin_kernel<false><<<n_blocks, kThreads, smem, s>>>(
-        lut_c, u_half, v_half, row_group, feats, nullptr, 4, band_of_block, out, n_rows, n_cols,
-        n_groups);
-  }
+  group_argmin_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lut_c, u_half, v_half, row_group, feats, index, stride, band_of_block, out, n_rows, n_cols,
+      n_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -822,23 +802,12 @@ extern "C" int xs_group_argmin_streamed(const float* lut_c, const float* u_half,
                                         int n_groups, int prune, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
-  const bool indexed = index != nullptr;
-  const size_t smem =
-      streamed_smem_bytes(n_cols, (n_rows + kChunkRows - 1) / kChunkRows, indexed);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = indexed ? xs::allow_smem(group_argmin_streamed_kernel<true>, smem)
-                            : xs::allow_smem(group_argmin_streamed_kernel<false>, smem);
+  const size_t smem = streamed_smem_bytes(n_cols, (n_rows + kChunkRows - 1) / kChunkRows);
+  cudaError_t err = xs::allow_smem(group_argmin_streamed_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float2* r = reinterpret_cast<const float2*>(radii);
-  if (indexed) {
-    group_argmin_streamed_kernel<true><<<n_blocks, kThreads, smem, s>>>(
-        lut_c, u_half, v_half, row_group, r, feats, index, stride, band_of_block, out, swept,
-        n_rows, n_cols, n_groups, prune);
-  } else {
-    group_argmin_streamed_kernel<false><<<n_blocks, kThreads, smem, s>>>(
-        lut_c, u_half, v_half, row_group, r, feats, nullptr, 4, band_of_block, out, swept,
-        n_rows, n_cols, n_groups, prune);
-  }
+  group_argmin_streamed_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lut_c, u_half, v_half, row_group, reinterpret_cast<const float2*>(radii), feats, index,
+      stride, band_of_block, out, swept, n_rows, n_cols, n_groups, prune);
   return static_cast<int>(cudaGetLastError());
 }
 

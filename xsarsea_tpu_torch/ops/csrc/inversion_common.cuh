@@ -105,44 +105,32 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-// A block's feature rows as the kernels read them. In slot order (the
-// default), slot p's row starts at rows + p * stride: a bucket-ordered copy
-// made beforehand. With kIndexed the kernel reads through the bucket
-// permutation instead: slot p's row is row index[p] of the pixel table rows,
-// and a slot whose index is negative (padding) reads NaN features. rows, and
-// index in the indexed form, point at the block's first slot and at the
-// table's first row; a row holds stride floats, of which the kernel reads the
-// first few (K1 the first 4 of the fused tail's 8).
-template <bool kIndexed>
+// A block's feature rows as the kernels read them, through the bucket
+// permutation: slot p's row is row index[p] of the pixel table rows, and a
+// slot whose index is negative (padding) reads NaN features. index points at
+// the block's first slot, rows at the table's first row; a row holds stride
+// floats, of which the kernel reads the first few (K1 the first 4 of the fused
+// tail's 8). A caller whose rows are already in slot order passes the identity
+// permutation.
 struct Rows {
   const float* __restrict__ rows;
   int stride;
-  const long long* __restrict__ index = nullptr;  // kIndexed only
+  const long long* __restrict__ index;
 
-  // The pixel of slot p (negative for padding); slot order: p itself.
-  __device__ __forceinline__ long long pixel(int p) const {
-    if constexpr (kIndexed) {
-      return index[p];
-    } else {
-      return p;
-    }
-  }
+  // The pixel of slot p (negative for padding).
+  __device__ __forceinline__ long long pixel(int p) const { return index[p]; }
 
   // Feature j of slot p.
   __device__ __forceinline__ float at(int p, int j) const {
     const long long i = pixel(p);
-    if constexpr (kIndexed) {
-      if (i < 0) return CUDART_NAN_F;
-    }
+    if (i < 0) return CUDART_NAN_F;
     return rows[i * stride + j];
   }
 
   // Features 0-3 of slot p, one load each.
   __device__ __forceinline__ float4 head(int p) const {
     const long long i = pixel(p);
-    if constexpr (kIndexed) {
-      if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
-    }
+    if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
     const float* r = rows + i * stride;
     return make_float4(r[0], r[1], r[2], r[3]);
   }
@@ -151,9 +139,7 @@ struct Rows {
   // a multiple of 4).
   __device__ __forceinline__ float4 head4(int p) const {
     const long long i = pixel(p);
-    if constexpr (kIndexed) {
-      if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
-    }
+    if (i < 0) return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
     return *reinterpret_cast<const float4*>(rows + i * stride);
   }
 };
@@ -333,9 +319,8 @@ struct Chains {
 // each warp's partial (minimum, index) per pixel in smem: part_best[w *
 // kPixels + p], part_idx likewise (p = 32 * group + lane). Every thread of
 // the block calls it with the same G.
-template <int G, Form F, int kChunk, bool kIndexed>
-__device__ void sweep_groups(float* smem, const Slab& s, const Rows<kIndexed>& feats,
-                             unsigned live) {
+template <int G, Form F, int kChunk>
+__device__ void sweep_groups(float* smem, const Slab& s, const Rows& feats, unsigned live) {
   static_assert(kChunk % kWarps == 0, "every warp keeps its rows r = w mod 4 in every chunk");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -407,12 +392,11 @@ __device__ void sweep_groups(float* smem, const Slab& s, const Rows<kIndexed>& f
 // The first minimum of pixel threadIdx.x of the block over its slab in cost
 // form F. feats: the block's feature rows (s0, ma/2, mz/2, 1/dsig for the
 // direct form; s0 * inv_dsig, ma/2, mz/2, 1 for the other two; then others),
-// in slot order or through the bucket permutation. Needs kThreads threads
-// and smem_bytes<F, kChunk>(s.n_phi, s.n_rows) of 16-byte aligned dynamic
-// shared memory.
-template <Form F = kDirect, int kChunk = kChunkRows, bool kIndexed = false>
-__device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
-                                            const Rows<kIndexed>& feats) {
+// read through the bucket permutation. Needs kThreads threads and
+// smem_bytes<F, kChunk>(s.n_phi, s.n_rows) of 16-byte aligned dynamic shared
+// memory.
+template <Form F = kDirect, int kChunk = kChunkRows>
+__device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s, const Rows& feats) {
   const int lane = threadIdx.x & 31;
   // groups with a pixel whose s0 is not NaN; every warp finds the same ones
   unsigned live = 0;
@@ -452,14 +436,6 @@ __device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
     }
   }
   return m;
-}
-
-// The same over features in slot order: feats_b points at the block's first
-// pixel's row of feat_stride floats.
-template <Form F = kDirect, int kChunk = kChunkRows>
-__device__ __forceinline__ SlabArgmin sweep(float* smem, const Slab& s,
-                                            const float* __restrict__ feats_b, int feat_stride) {
-  return sweep<F, kChunk>(smem, s, Rows<false>{feats_b, feat_stride});
 }
 
 }  // namespace slab

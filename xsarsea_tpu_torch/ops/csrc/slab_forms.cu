@@ -19,17 +19,18 @@
 // Two loops, so that the experiment prices the forms on the sweep the path
 // runs and keeps its "before":
 //   * shared (the default): xs::slab::sweep<form, 8>, the sweep of K2 and K3
-//     (inversion_common.cuh): 128 threads a 128-pixel block, four pixels a
-//     lane, one row chain a warp, the slab's planes (l, u, v, and kr for
-//     expanded_uv) streamed through shared memory 8 rows a stage by
-//     cp.async and read as float4s, the NaN-propagating minimum, the (cost,
-//     flat index) merge. Its direct form is K3, bit for bit. Bound on the
-//     H100: FP32 issue, as K3 (slab_refine.cu): 11.25 SASS instructions per
-//     entry and pixel for the direct form, of which the cost is 9 FP32
-//     operations; prescaled drops a multiply, expanded_uv a subtraction and
-//     a multiply but adds a shared load (a fourth float4 per four entries)
-//     and a fourth plane to every stage (47 KB a block at 181 phi, 35 KB for
-//     the others).
+//     (inversion_common.cuh), its feature rows read as K2 and K3 read them,
+//     through an index (the wrapper passes the identity permutation): 128
+//     threads a 128-pixel block, four pixels a lane, one row chain a warp,
+//     the slab's planes (l, u, v, and kr for expanded_uv) streamed through
+//     shared memory 8 rows a stage by cp.async and read as float4s, the
+//     NaN-propagating minimum, the (cost, flat index) merge. Its direct
+//     form is K3, bit for bit. Bound on the H100: FP32 issue, as K3
+//     (slab_refine.cu): 11.25 SASS instructions per entry and pixel for the
+//     direct form, of which the cost is 9 FP32 operations; prescaled drops a
+//     multiply, expanded_uv a subtraction and a multiply but adds a shared
+//     load (a fourth float4 per four entries) and a fourth plane to every
+//     stage (47 KB a block at 181 phi, 35 KB for the others).
 //   * thread: the one-pixel-a-thread loop K2 and K3 ran before their sweep
 //     was redesigned (xs::copol_slab_argmin's loop, written out per form): a
 //     block per bucket block, one thread per pixel, the 48-row slab (and
@@ -119,14 +120,15 @@ __global__ void slab_forms_kernel(const float* __restrict__ lut, const float* __
   out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
 }
 
-// The shared loop: K3's kernel on the sweep in form F. feats rows (s0, ma/2,
-// mz/2, 1/dsig) for the direct form, (s0 * inv_dsig, ma/2, mz/2, 1) for the
-// other two.
+// The shared loop: K3's kernel on the sweep in form F, slot s's row of 4
+// floats read at index[s]. feats rows (s0, ma/2, mz/2, 1/dsig) for the direct
+// form, (s0 * inv_dsig, ma/2, mz/2, 1) for the other two.
 template <xs::Form F>
 __global__ void __launch_bounds__(kThreads)
     slab_forms_shared_kernel(const float* __restrict__ lut, const float* __restrict__ u,
                              const float* __restrict__ v, const float* __restrict__ kr,
-                             const float* __restrict__ feats, const int* __restrict__ sband,
+                             const float* __restrict__ feats,
+                             const long long* __restrict__ index, const int* __restrict__ sband,
                              const int* __restrict__ srow0, const int* __restrict__ vmask,
                              int* __restrict__ out, int wp_rows, int n_phi, int n_rows,
                              int no_hit) {
@@ -143,23 +145,23 @@ __global__ void __launch_bounds__(kThreads)
   const xs::slab::Slab slab{lut + static_cast<size_t>(sband[b]) * wp_rows * n_phi + row0,
                             u + row0, v + row0, n_rows, n_phi,
                             F == kExpandedUV ? kr + row0 : nullptr};
-  const xs::SlabArgmin m =
-      xs::slab::sweep<F>(sweep_smem, slab, feats + static_cast<size_t>(b) * kPixels * 4, 4);
+  const xs::Rows f{feats, 4, index + static_cast<size_t>(b) * kPixels};
+  const xs::SlabArgmin m = xs::slab::sweep<F>(sweep_smem, slab, f);
   out_b[t] = xs::slab_flat_index(m, r0, n_phi, no_hit);
 }
 
 template <int kForm>
 int launch_shared(const float* lut, const float* u, const float* v, const float* kr,
-                  const float* feats, const int* sband, const int* srow0, const int* vmask,
-                  int* out, int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
-                  int no_hit, cudaStream_t stream) {
+                  const float* feats, const long long* index, const int* sband,
+                  const int* srow0, const int* vmask, int* out, int n_blocks, int block,
+                  int wp_rows, int n_phi, int n_rows, int no_hit, cudaStream_t stream) {
   constexpr xs::Form F = static_cast<xs::Form>(kForm);
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = xs::slab::smem_bytes<F>(n_phi, n_rows);
   cudaError_t err = xs::allow_smem(slab_forms_shared_kernel<F>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   slab_forms_shared_kernel<F><<<n_blocks, kThreads, smem, stream>>>(
-      lut, u, v, kr, feats, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
+      lut, u, v, kr, feats, index, sband, srow0, vmask, out, wp_rows, n_phi, n_rows, no_hit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,13 +181,13 @@ int launch(const float* lut, const float* u, const float* v, const float* kr,
 
 template <int kForm>
 int launch_loop(int loop, const float* lut, const float* u, const float* v, const float* kr,
-                const float* feats, const int* sband, const int* srow0, const int* vmask,
-                int* out, int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
-                int no_hit, cudaStream_t stream) {
+                const float* feats, const long long* index, const int* sband, const int* srow0,
+                const int* vmask, int* out, int n_blocks, int block, int wp_rows, int n_phi,
+                int n_rows, int no_hit, cudaStream_t stream) {
   switch (loop) {
     case 0:
-      return launch_shared<kForm>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks,
-                                  block, wp_rows, n_phi, n_rows, no_hit, stream);
+      return launch_shared<kForm>(lut, u, v, kr, feats, index, sband, srow0, vmask, out,
+                                  n_blocks, block, wp_rows, n_phi, n_rows, no_hit, stream);
     case 1:
       return launch<kForm>(lut, u, v, kr, feats, sband, srow0, vmask, out, n_blocks, block,
                            wp_rows, n_phi, n_rows, no_hit, stream);
@@ -196,24 +198,30 @@ int launch_loop(int loop, const float* lut, const float* u, const float* v, cons
 
 }  // namespace
 
-// loop 0: the shared sweep; 1: the one-pixel-a-thread baseline.
+// The experiment library's error names (ops/experiment_kernels.py).
+extern "C" const char* xs_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// loop 0: the shared sweep, reading slot s's features at index[s]; 1: the
+// one-pixel-a-thread baseline, reading them in slot order (index unused).
 extern "C" int xs_slab_forms(int form, int loop, const float* lut, const float* u,
                              const float* v, const float* kr, const float* feats,
-                             const int* sband, const int* srow0, const int* vmask, int* out,
-                             int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
-                             int no_hit, void* stream) {
+                             const long long* index, const int* sband, const int* srow0,
+                             const int* vmask, int* out, int n_blocks, int block, int wp_rows,
+                             int n_phi, int n_rows, int no_hit, void* stream) {
   if (n_blocks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (form) {
     case kDirect:
-      return launch_loop<kDirect>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
+      return launch_loop<kDirect>(loop, lut, u, v, kr, feats, index, sband, srow0, vmask, out,
                                   n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     case kPrescaled:
-      return launch_loop<kPrescaled>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
-                                     n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
+      return launch_loop<kPrescaled>(loop, lut, u, v, kr, feats, index, sband, srow0, vmask,
+                                     out, n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     case kExpandedUV:
-      return launch_loop<kExpandedUV>(loop, lut, u, v, kr, feats, sband, srow0, vmask, out,
-                                      n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
+      return launch_loop<kExpandedUV>(loop, lut, u, v, kr, feats, index, sband, srow0, vmask,
+                                      out, n_blocks, block, wp_rows, n_phi, n_rows, no_hit, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

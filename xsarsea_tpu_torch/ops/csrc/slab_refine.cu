@@ -24,10 +24,9 @@
 // The caller clips both sentinels to the last grid cell. Blocks that hold only
 // padding (vmask == 0) write 0; nothing reads them.
 //
-// As K2, the kernel reads its features in slot order (a bucket-ordered copy,
-// rows of 4 floats) or, in its indexed form, through the bucket permutation
-// from the pixel table (the first 4 floats of rows of stride floats; a padding
-// slot's are NaN), and then writes each pixel's index into pixel order,
+// As K2, the kernel reads its features through the bucket permutation from
+// the pixel table (the first 4 floats of rows of stride floats; a padding
+// slot's are NaN), and writes each pixel's index into pixel order,
 // out[pixel]; padding slots and all-padding blocks write nothing there.
 //
 // Bound on the H100: FP32 issue, as K2. Per pixel (48 rows) 48 x 181 = 8,688 entries x
@@ -45,7 +44,7 @@ namespace {
 using xs::slab::kPixels;
 using xs::slab::kThreads;
 
-template <int kChunk, bool kIndexed>
+template <int kChunk>
 __global__ void __launch_bounds__(kThreads)
     slab_refine_kernel(const float* __restrict__ lut_pad, const float* __restrict__ u_half,
                        const float* __restrict__ v_half, const float* __restrict__ feats,
@@ -56,38 +55,28 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  int* out_b = out + static_cast<size_t>(b) * kPixels;
-  if (vmask[b] == 0) {
-    if constexpr (!kIndexed) out_b[t] = 0;
-    return;
-  }
+  if (vmask[b] == 0) return;
   const int r0 = srow0[b];
   const size_t row0 = static_cast<size_t>(r0) * n_phi;
   const xs::slab::Slab slab{lut_pad + static_cast<size_t>(sband[b]) * wp_rows * n_phi + row0,
                             u_half + row0, v_half + row0, n_rows, n_phi};
   // feats rows: s0, ma/2, mz/2, 1/dsig
-  const size_t slot0 = static_cast<size_t>(b) * kPixels;
-  const xs::Rows<kIndexed> f = kIndexed ? xs::Rows<kIndexed>{feats, stride, index + slot0}
-                                        : xs::Rows<kIndexed>{feats + slot0 * 4, 4};
+  const xs::Rows f{feats, stride, index + static_cast<size_t>(b) * kPixels};
   const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(smem, slab, f);
   const int flat = xs::slab_flat_index(m, r0, n_phi, no_hit);
-  if constexpr (kIndexed) {
-    const long long px = f.pixel(t);
-    if (px >= 0) out[px] = flat;
-  } else {
-    out_b[t] = flat;
-  }
+  const long long px = f.pixel(t);
+  if (px >= 0) out[px] = flat;
 }
 
-template <int kChunk, bool kIndexed>
+template <int kChunk>
 int launch(const float* lut_pad, const float* u_half, const float* v_half, const float* feats,
            const long long* index, int stride, const int* sband, const int* srow0,
            const int* vmask, int* out, int n_blocks, int wp_rows, int n_phi, int n_rows,
            int no_hit, cudaStream_t stream) {
   const size_t smem = xs::slab::smem_bytes<xs::kDirect, kChunk>(n_phi, n_rows);
-  cudaError_t err = xs::allow_smem(slab_refine_kernel<kChunk, kIndexed>, smem);
+  cudaError_t err = xs::allow_smem(slab_refine_kernel<kChunk>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  slab_refine_kernel<kChunk, kIndexed><<<n_blocks, kThreads, smem, stream>>>(
+  slab_refine_kernel<kChunk><<<n_blocks, kThreads, smem, stream>>>(
       lut_pad, u_half, v_half, feats, index, stride, sband, srow0, vmask, out, wp_rows, n_phi,
       n_rows, no_hit);
   return static_cast<int>(cudaGetLastError());
@@ -95,37 +84,27 @@ int launch(const float* lut_pad, const float* u_half, const float* v_half, const
 
 }  // namespace
 
-// index: nullptr for features and results in slot order (feats rows of 4
-// floats), or the slot -> pixel permutation of the indexed form (feats the
-// pixel table, rows of stride >= 4 floats; out (n_px,) in pixel order), which
-// is compiled at the paths' chunk height of 8 rows only.
+// index: the slot -> pixel permutation (-1 for padding); feats: the pixel
+// table, rows of stride >= 4 floats; out: (n_px,) in pixel order.
+// chunk_rows: the sweep's stage height, 8 on every path (16, 24 and 48 for
+// scripts/bench_slab_variants.py).
 extern "C" int xs_slab_refine(const float* lut_pad, const float* u_half, const float* v_half,
                               const float* feats, const long long* index, int stride,
                               const int* sband, const int* srow0, const int* vmask, int* out,
                               int n_blocks, int block, int wp_rows, int n_phi, int n_rows,
                               int no_hit, int chunk_rows, void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
-  if (index != nullptr && chunk_rows != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto launcher) {
+    return launcher(lut_pad, u_half, v_half, feats, index, stride, sband, srow0, vmask, out,
+                    n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
+  };
   switch (chunk_rows) {
-    case 8:
-      if (index != nullptr) {
-        return launch<8, true>(lut_pad, u_half, v_half, feats, index, stride, sband, srow0,
-                               vmask, out, n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
-      }
-      return launch<8, false>(lut_pad, u_half, v_half, feats, nullptr, 4, sband, srow0, vmask,
-                              out, n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
-    case 16:
-      return launch<16, false>(lut_pad, u_half, v_half, feats, nullptr, 4, sband, srow0, vmask,
-                               out, n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
-    case 24:
-      return launch<24, false>(lut_pad, u_half, v_half, feats, nullptr, 4, sband, srow0, vmask,
-                               out, n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
-    case 48:
-      return launch<48, false>(lut_pad, u_half, v_half, feats, nullptr, 4, sband, srow0, vmask,
-                               out, n_blocks, wp_rows, n_phi, n_rows, no_hit, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 8: return run(launch<8>);
+    case 16: return run(launch<16>);
+    case 24: return run(launch<24>);
+    case 48: return run(launch<48>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,16 +29,12 @@
 // was not swept included (dual-pol data can miss copol alone); with a NaN
 // crosspol sigma0 every crosspol cost is NaN and it gives 0.
 //
-// Features and results take one of two layouts, a template parameter of the
-// kernel. In slot order, feats holds a bucket-ordered copy of the pixels'
-// rows and out the block's (wspd_co, phi, wspd_cr, 0) rows, slot by slot. The
-// indexed form (the inversion's path) reads each slot's row of the pixel
-// table through the bucket permutation (index: slot -> pixel, -1 for a
-// padding slot, whose features are NaN) and writes wspd_co, phi and wspd_cr
-// straight into pixel order, out[k * n_px + pixel]; padding slots and
-// all-padding blocks write nothing. So neither copy exists: not the rows
-// gathered into bucket order before the kernel, nor the results scattered
-// back after it.
+// The kernel reads each slot's row of the pixel table through the bucket
+// permutation (index: slot -> pixel, -1 for a padding slot, whose features
+// are NaN) and writes wspd_co, phi and wspd_cr straight into pixel order,
+// out[k * n_px + pixel]; padding slots and all-padding blocks write nothing.
+// So neither copy exists: not the rows gathered into bucket order before the
+// kernel, nor the results scattered back after it.
 //
 // Bound on the H100: FP32 issue. Per pixel (48-row slab) 48 x 181 = 8,688 entries x 10
 // counted FP32 operations (see slab_refine.cu), then 771 crosspol entries x 8.
@@ -52,7 +48,7 @@ namespace {
 using xs::slab::kPixels;
 using xs::slab::kThreads;
 
-template <int kChunk, bool kIndexed>
+template <int kChunk>
 __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
     const float* __restrict__ lut_pad, const float* __restrict__ u_half,
     const float* __restrict__ v_half, const float* __restrict__ w_pad,
@@ -64,25 +60,14 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  float* out_b = out + static_cast<size_t>(b) * 4 * kPixels;
-  if (vmask[b] == 0) {
-    if constexpr (!kIndexed) {
-      out_b[t] = 0.0f;
-      out_b[kPixels + t] = 0.0f;
-      out_b[2 * kPixels + t] = 0.0f;
-      out_b[3 * kPixels + t] = 0.0f;
-    }
-    return;
-  }
+  if (vmask[b] == 0) return;
   const int band = sband[b];
   const int r0 = srow0[b];
   const size_t row0 = static_cast<size_t>(r0) * n_phi;
   const xs::slab::Slab slab{lut_pad + static_cast<size_t>(band) * wp_rows * n_phi + row0,
                             u_half + row0, v_half + row0, n_rows, n_phi};
   // feats rows: s0, ma/2, mz/2, 1/dsig, s0_cr, dsig_cr, 0, 0
-  const size_t slot0 = static_cast<size_t>(b) * kPixels;
-  const xs::Rows<kIndexed> f = kIndexed ? xs::Rows<kIndexed>{feats, stride, index + slot0}
-                                        : xs::Rows<kIndexed>{feats + slot0 * 8, 8};
+  const xs::Rows f{feats, stride, index + static_cast<size_t>(b) * kPixels};
   const xs::SlabArgmin m = xs::slab::sweep<xs::kDirect, kChunk>(smem, slab, f);
   const bool hit = !m.poisoned && m.row >= 0;
   const float wspd_co = hit ? w_pad[r0 + m.row] : 0.0f;
@@ -105,22 +90,15 @@ __global__ void __launch_bounds__(kThreads) slab_refine_fused_kernel(
       wspd_cr = speed[0];
     }
   }
-  if constexpr (kIndexed) {
-    const long long px = f.pixel(t);
-    if (px >= 0) {
-      out[px] = wspd_co;
-      out[n_px + px] = phi;
-      out[2 * n_px + px] = wspd_cr;
-    }
-  } else {
-    out_b[t] = wspd_co;
-    out_b[kPixels + t] = phi;
-    out_b[2 * kPixels + t] = wspd_cr;
-    out_b[3 * kPixels + t] = 0.0f;
+  const long long px = f.pixel(t);
+  if (px >= 0) {
+    out[px] = wspd_co;
+    out[n_px + px] = phi;
+    out[2 * n_px + px] = wspd_cr;
   }
 }
 
-template <int kChunk, bool kIndexed>
+template <int kChunk>
 int launch(const float* lut_pad, const float* u_half, const float* v_half, const float* w_pad,
            const float* co_phir, const float* cr_lut, const float* cr_whalf, const float* feats,
            const long long* index, int stride, const int* sband, const int* srow0,
@@ -128,9 +106,9 @@ int launch(const float* lut_pad, const float* u_half, const float* v_half, const
            int n_rows, int n_cr, int has_cr, cudaStream_t stream) {
   size_t smem = xs::slab::smem_bytes<xs::kDirect, kChunk>(n_phi, n_rows);
   if (has_cr) smem = std::max(smem, xs::crosspol::smem_bytes(n_cr));  // the staged row
-  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel<kChunk, kIndexed>, smem);
+  cudaError_t err = xs::allow_smem(slab_refine_fused_kernel<kChunk>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  slab_refine_fused_kernel<kChunk, kIndexed><<<n_blocks, kThreads, smem, stream>>>(
+  slab_refine_fused_kernel<kChunk><<<n_blocks, kThreads, smem, stream>>>(
       lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, index, stride, sband,
       srow0, vmask, out, n_px, wp_rows, n_phi, n_rows, n_cr, has_cr);
   return static_cast<int>(cudaGetLastError());
@@ -138,10 +116,10 @@ int launch(const float* lut_pad, const float* u_half, const float* v_half, const
 
 }  // namespace
 
-// index: nullptr for features and results in slot order (feats rows of 8
-// floats), or the slot -> pixel permutation of the indexed form (feats the
-// pixel table, rows of stride >= 6 floats; out (3, n_px) in pixel order),
-// which is compiled at the paths' chunk height of 8 rows only.
+// index: the slot -> pixel permutation (-1 for padding); feats: the pixel
+// table, rows of stride >= 6 floats; out: (3, n_px) in pixel order.
+// chunk_rows: the sweep's stage height, 8 on every path (16, 24 and 48 for
+// scripts/bench_slab_variants.py).
 extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
                                     const float* v_half, const float* w_pad,
                                     const float* co_phir, const float* cr_lut,
@@ -152,32 +130,18 @@ extern "C" int xs_slab_refine_fused(const float* lut_pad, const float* u_half,
                                     int n_phi, int n_rows, int n_cr, int has_cr, int chunk_rows,
                                     void* stream) {
   if (block != kPixels) return static_cast<int>(cudaErrorInvalidValue);
-  if (index != nullptr && chunk_rows != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto launcher) {
+    return launcher(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, index,
+                    stride, sband, srow0, vmask, out, n_px, n_blocks, wp_rows, n_phi, n_rows,
+                    n_cr, has_cr, s);
+  };
   switch (chunk_rows) {
-    case 8:
-      if (index != nullptr) {
-        return launch<8, true>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                               index, stride, sband, srow0, vmask, out, n_px, n_blocks, wp_rows,
-                               n_phi, n_rows, n_cr, has_cr, s);
-      }
-      return launch<8, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                              nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
-                              n_rows, n_cr, has_cr, s);
-    case 16:
-      return launch<16, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
-                               n_rows, n_cr, has_cr, s);
-    case 24:
-      return launch<24, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
-                               n_rows, n_cr, has_cr, s);
-    case 48:
-      return launch<48, false>(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
-                               nullptr, 8, sband, srow0, vmask, out, 0, n_blocks, wp_rows, n_phi,
-                               n_rows, n_cr, has_cr, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 8: return run(launch<8>);
+    case 16: return run(launch<16>);
+    case 24: return run(launch<24>);
+    case 48: return run(launch<48>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

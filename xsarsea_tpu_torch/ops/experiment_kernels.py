@@ -21,18 +21,27 @@
   splits (``highest``, :func:`split3_bf16`), with g4 split once by
   :func:`split_g4`. Its sums are the tensor core's, so it is held to its
   plain version up to near-ties (:func:`tc_flips`).
+* :func:`crosspol_quotient` and :func:`crosspol_quotient_sweep`: the
+  quotient of K4's and K2's crosspol loop (``xs::crosspol::quotient``),
+  mapped over two tensors or swept over every significand pair, to be held
+  against the true divide (``scripts/check_crosspol_quotient.py``).
 
-On a CUDA tensor each wrapper launches its hand-written kernel
+On a CUDA tensor each wrapper launches its hand-written kernel or raises;
+on a CPU tensor it runs the plain PyTorch version. The kernels
 (``csrc/slab_forms.cu``, ``csrc/group_argmin_variants.cu``,
-``csrc/group_argmin_variants_tc.cu``, built into the library of
-:mod:`xsarsea_tpu_torch.ops.inversion_kernels`) or raises; on a CPU tensor
-it runs the plain PyTorch version. Each wrapper counts its launches per
-form or variant and per loop or engine (:func:`launch_counts`).
+``csrc/group_argmin_variants_tc.cu``, ``csrc/crosspol_quotient.cu``) build
+into a library of their own, apart from the main path's
+(:mod:`xsarsea_tpu_torch.ops.inversion_kernels`), at first use here: a
+process that only inverts never builds or loads it. Each wrapper of K5 and
+K6 counts its launches per form or variant and per loop or engine
+(:func:`launch_counts`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -51,6 +60,8 @@ __all__ = [
     "REDUCTIONS",
     "VARIANT_BLOCKS",
     "build_form_arrays",
+    "crosspol_quotient",
+    "crosspol_quotient_sweep",
     "group_argmin_variant",
     "launch_counts",
     "reset_launch_counts",
@@ -85,6 +96,30 @@ _TC_WORDS = {"highest": 4, "default": 2}
 TIE_REL = 2.0 ** -20  # a tensor-core flip must lie within this share of S_p
 
 _LAUNCH = "launch.experiment/"  # the launch counters' prefix among the port's counters
+
+_SOURCES = ("slab_forms.cu", "group_argmin_variants.cu", "group_argmin_variants_tc.cu",
+            "crosspol_quotient.cu")
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    "xs_slab_forms": [_i, _i] + [_p] * 10 + [_i] * 6 + [_p],
+    "xs_group_argmin_variant": [_p] * 4 + [_i] * 4 + [_p],
+    "xs_group_argmin_variant_tc": [_p] * 4 + [_i] * 4 + [_p],
+    "xs_split_g4": [_p, _p, _i, _i, _p],
+    "xs_crosspol_quotient": [_p] * 4 + [_i, _p],
+    "xs_crosspol_quotient_sweep": [ctypes.c_uint, ctypes.c_uint, _p, _p, _p],
+}
+_lib_lock = threading.Lock()
+_lib = None
+
+
+def _load():
+    """The experiment library, built (:func:`K.build_kernels`) and bound on
+    first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = K._bind(K.build_kernels(_SOURCES, "experiments"), _ENTRIES)
+    return _lib
 
 
 def _count(key):
@@ -332,14 +367,18 @@ def slab_forms(form, lut, u, v, kr, feats, sband, srow0, vmask, block=K.SLAB_BLO
     K._in_range(i32[0], 0, n_inc, "sband")
     K._in_range(i32[1], 0, wp_rows - K.SLAB_ROWS + 1, "srow0")
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
-    lib = K._load()
+    index_ptr = None  # the thread loop reads its rows in slot order
+    if loop == "shared":  # the shared loop reads them as K2 and K3 do, through an index
+        ident = torch.arange(n_blocks * block, device=feats.device)
+        index_ptr = ident.data_ptr()
+    lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_slab_forms(
             FORMS.index(form), LOOPS.index(loop), lut.data_ptr(), u.data_ptr(), v.data_ptr(),
-            None if kr is None else kr.data_ptr(), feats.data_ptr(), i32[0].data_ptr(),
-            i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(), n_blocks, block, wp_rows,
-            n_phi, K.SLAB_ROWS, K._no_hit_flat(n_phi), stream)
+            None if kr is None else kr.data_ptr(), feats.data_ptr(), index_ptr,
+            i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(), out.data_ptr(), n_blocks,
+            block, wp_rows, n_phi, K.SLAB_ROWS, K._no_hit_flat(n_phi), stream)
     K._check(lib, rc, f"slab_forms[{form}, {loop}]")
     _count(f"slab_forms/{form}" if loop == "shared" else f"slab_forms_thread/{form}")
     return out
@@ -363,7 +402,7 @@ def split_g4(g4, precision):
     K._cuda_args(g4.device, {"g4": (g4, torch.float32, (n_bands, G4_TILES, 4, G4_TILE))})
     out = torch.empty((n_bands, G4_TILES, G4_TILE // _M_TILE, 32, _TC_WORDS[precision]),
                       dtype=torch.int32, device=g4.device)
-    lib = K._load()
+    lib = _load()
     with torch.cuda.device(g4.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_split_g4(g4.data_ptr(), out.data_ptr(), n_bands,
@@ -425,7 +464,7 @@ def group_argmin_variant(g4, feats, band_of_block, *, block, reduction, precisio
             n_bands, G4_TILES, G4_TILE // _M_TILE, 32, _TC_WORDS[precision]))})
         if g4_split.data_ptr() % 16:
             raise ValueError("group_argmin_variant: g4_split must be 16-byte aligned")
-    lib = K._load()
+    lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         if engine == "tensor_cores":
@@ -482,3 +521,53 @@ def tc_flips(g4, feats, band_of_block, got, ref, *, block, reduction, precision,
         report["not_near_tie"] += int((~near).sum())
         report["worst"] = max(report["worst"], float(torch.nan_to_num(rel, nan=np.inf).max()))
     return report
+
+
+def crosspol_quotient(a, b):
+    """The quotient ``a / b`` as the crosspol argmin's kernels compute it
+    (``xs::crosspol::quotient``), elementwise over two float32 tensors of
+    one shape: the hoisted route (a correctly rounded reciprocal of ``b``,
+    one product and one residual step by two explicit fused multiply-adds)
+    where ``b`` and ``a`` lie inside its windows, the true divide elsewhere.
+    Returns ``(q, hoisted)``, ``hoisted`` a bool tensor of the elements
+    that took the hoisted route.
+    It is there to be held against the true divide, which is what runs for
+    CPU tensors (``hoisted`` all False); it is on no path of the inversion
+    and counts no launch.
+    """
+    if a.shape != b.shape:
+        raise ValueError(f"crosspol_quotient: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return a / b, torch.zeros(a.shape, dtype=torch.bool)
+    if a.device.type != "cuda":
+        raise ValueError(f"crosspol_quotient: unsupported device {a.device}")
+    K._cuda_args(a.device, {"a": (a, torch.float32, None), "b": (b, torch.float32, None)})
+    out = torch.empty_like(a)
+    hoisted = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    lib = _load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_crosspol_quotient(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      hoisted.data_ptr(), a.numel(), stream)
+    K._check(lib, rc, "crosspol_quotient")
+    return out, hoisted.to(torch.bool)
+
+
+def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
+    """The hoisted quotient against the true divide on every dividend
+    significand (2**23 values in [1, 2)) for the divisors ``1 + i * 2**-23``,
+    ``b_first <= i < b_first + b_count``, on the card. Returns ``(differing
+    pairs, examples)``, examples a list of up to 16 ``(dividend, divisor)``
+    float pairs."""
+    dev = torch.device(device)
+    found = torch.zeros(2, dtype=torch.int64, device=dev)
+    examples = torch.zeros(32, dtype=torch.int32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_crosspol_quotient_sweep(b_first, b_count, found.data_ptr(),
+                                            examples.data_ptr(), stream)
+    K._check(lib, rc, "crosspol_quotient_sweep")
+    n_bad, n_examples = (int(x) for x in found.tolist())
+    pairs = examples.view(torch.float32).reshape(16, 2)[:min(n_examples, 16)].tolist()
+    return n_bad, [tuple(pair) for pair in pairs]

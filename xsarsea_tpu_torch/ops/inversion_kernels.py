@@ -28,30 +28,32 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   256-pixel block sharing one crosspol incidence band, K2's crosspol 1-D
   argmin over the band's row. On the card its quotient is hoisted (one
   reciprocal a pixel, a residual correction an entry);
-  :func:`crosspol_quotient` exposes that quotient so that it can be held
-  against the true divide.
+  ``experiment_kernels.crosspol_quotient`` exposes that quotient so that it
+  can be held against the true divide.
 * :func:`dual_merge` replaces no ``pallas_call``: the dual-pol merge, which
   the JAX package runs in numpy on the host once the winds are back
   (``xsarsea_tpu/windspeed/inversion.py:1652-1659``), run on each piece's
   float32 winds before their copy out, in the pass that packs them into
   complex64.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/*.cu``, built with nvcc for ``sm_90a`` at first use and bound with
-ctypes) or raises; on a CPU tensor it runs the plain PyTorch version, which
-keeps the kernel's per-element op order as separate ops. Each wrapper
-counts its kernel launches (:func:`launch_counts`).
+On a CUDA tensor each wrapper launches its hand-written kernel (the main
+path's library: ``csrc/`` sources of :data:`_SOURCES`, built with nvcc for
+``sm_90a`` at first use and bound with ctypes) or raises; on a CPU tensor it
+runs the plain PyTorch version, which keeps the kernel's per-element op
+order as separate ops. Each wrapper counts its kernel launches
+(:func:`launch_counts`). The experiment kernels build into a library of
+their own (:mod:`xsarsea_tpu_torch.ops.experiment_kernels`).
 
-K1-K4 read their pixels' feature rows in bucket (slot) order. Given as
-``feats``, those rows are a bucket-ordered copy the caller made. Given
-``index=``, the bucket permutation (slot -> pixel, -1 for a padding slot),
-the kernel reads each slot's row from ``feats``, then the pixel table,
-itself, NaN for padding, and K2-K4 write their results straight into pixel
-order: no copy is made on either side (the fused inversion's path). The
-plain versions build the copy, ``where(index >= 0, rows[index.clamp(0)],
-nan)``, and scatter the results back, so the two stay bit-equal. Both forms
-count their slots: ``perm_rows_read`` (read through an index) and
-``rows_gathered`` (read from a copy made beforehand).
+K1-K4 visit their pixels in bucket (slot) order and read them through the
+required ``index=``, the bucket permutation (slot -> pixel, -1 for a
+padding slot): the kernel reads each slot's row from ``feats``, the pixel
+table, itself, NaN for padding, and K2-K4 write their results straight into
+pixel order, so no copy is made on either side. A caller whose rows are
+already in slot order passes the identity, ``torch.arange(n_slots)``; its
+results then come back in slot order. The plain versions gather the copy,
+``where(index >= 0, rows[index.clamp(0)], nan)``, compute on it and scatter
+K2-K4's results back, so the two stay bit-equal. Every launch counts its
+slots under ``perm_rows_read``.
 
 The per-entry cost is ``((l - s0) * inv_dsig)^2 + (u/2 - ma/2)^2 +
 (v/2 - mz/2)^2``, summed left to right, each square a plain product
@@ -69,6 +71,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -101,8 +104,6 @@ __all__ = [
     "check_row_group",
     "chunk_lower_bounds",
     "crosspol_argmin",
-    "crosspol_quotient",
-    "crosspol_quotient_sweep",
     "dual_merge",
     "group_argmin",
     "group_argmin_streamed",
@@ -136,10 +137,10 @@ _PLAIN_ELEMENTS = 1 << 27  # costs a plain version materializes at once
 MERGE_BELOW = 5.0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-# K5 and K6 (ops/experiment_kernels.py) build into the same library
+# the main path's library: K1-K4 and the dual-pol merge (the experiment
+# kernels' sources are ops/experiment_kernels.py's)
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
-            "crosspol_argmin.cu", "crosspol_quotient.cu", "slab_forms.cu",
-            "group_argmin_variants.cu", "group_argmin_variants_tc.cu", "dual_merge.cu")
+            "crosspol_argmin.cu", "dual_merge.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                "--threads", "0")  # the sources compile side by side
@@ -286,8 +287,8 @@ def _chunk(chunk_blocks, per_block):
 
 
 def _slot_rows(rows, index, width):
-    """The slot-order copy that the indexed kernels never make: slot s's
-    first ``width`` features from row ``index[s]`` of ``rows``, NaN where
+    """The slot-order copy that the kernels never make: slot s's first
+    ``width`` features from row ``index[s]`` of ``rows``, NaN where
     ``index[s] < 0`` (padding)."""
     return torch.where((index >= 0)[:, None], rows[index.clamp(min=0), :width], float("nan"))
 
@@ -313,13 +314,11 @@ def _row_minima(lut_c, u_half, v_half, fb, band):
 
 
 def _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                        block, chunk_blocks=16, index=None):
-    if index is not None:
-        feats = _slot_rows(feats, index, 4)
+                        block, chunk_blocks=16, *, index):
     n_blocks = band_of_block.shape[0]
     chunk_blocks = _chunk(chunk_blocks, block * u_half.numel())
     inf = float("inf")
-    f = feats.reshape(n_blocks, block, 4)
+    f = _slot_rows(feats, index, 4).reshape(n_blocks, block, 4)
     # blocks of NaN (padding) rows have no finite cost: their answer is known
     out = torch.full((n_blocks, block), n_groups - 1, dtype=torch.int32, device=feats.device)
     live = torch.nonzero(~torch.isnan(f).all(dim=2).all(dim=1))[:, 0]
@@ -547,16 +546,11 @@ def _crosspol_plain(cr_row, w_half, s0_cr, dsig_cr, wco_half, has_co):
 
 def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats,
                              sband, srow0, vmask, has_cr, block, n_rows=SLAB_ROWS,
-                             chunk_blocks=16, index=None):
-    if index is not None:
-        out = _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
-                                       cr_whalf, _slot_rows(feats, index, 8), sband, srow0,
-                                       vmask, has_cr, block, n_rows, chunk_blocks)
-        return _to_pixels(out[:, :3].permute(1, 0, 2).reshape(3, -1), index, feats.shape[0])
+                             chunk_blocks=16, *, index):
     n_blocks = sband.shape[0]
     n_phi = lut_pad.shape[2]
-    f = feats.reshape(n_blocks, block, 8)
-    out = torch.zeros((n_blocks, 4, block), dtype=torch.float32, device=feats.device)
+    f = _slot_rows(feats, index, 8).reshape(n_blocks, block, 8)
+    out = torch.zeros((n_blocks, 3, block), dtype=torch.float32, device=feats.device)
     slab_cost = _direct_slab_cost(lut_pad, u_half, v_half)
     for b0 in range(0, n_blocks, chunk_blocks):
         b1 = min(b0 + chunk_blocks, n_blocks)
@@ -578,7 +572,7 @@ def _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr
             wco2 = torch.where(hit, w_pad[row] * 0.5, 0.0)[..., None] * has_co
             out[sel, 2] = _crosspol_plain(cr_lut[band][:, None], cr_whalf, fb[:, :, 4, None],
                                           fb[:, :, 5, None], wco2, has_co)
-    return out
+    return _to_pixels(out.permute(1, 0, 2).reshape(3, -1), index, feats.shape[0])
 
 
 def _no_hit_flat(n_phi):
@@ -608,31 +602,24 @@ def _slab_index_plain(slab_cost, n_phi, feats, sband, srow0, vmask, block, chunk
 
 
 def _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
-                       n_rows=SLAB_ROWS, chunk_blocks=16, index=None):
-    slab_cost = _direct_slab_cost(lut_pad, u_half, v_half)
-    if index is None:
-        return _slab_index_plain(slab_cost, lut_pad.shape[2], feats, sband, srow0, vmask, block,
-                                 chunk_blocks, n_rows)
-    out = _slab_index_plain(slab_cost, lut_pad.shape[2], _slot_rows(feats, index, 4), sband,
-                            srow0, vmask, block, chunk_blocks, n_rows)
+                       n_rows=SLAB_ROWS, chunk_blocks=16, *, index):
+    out = _slab_index_plain(_direct_slab_cost(lut_pad, u_half, v_half), lut_pad.shape[2],
+                            _slot_rows(feats, index, 4), sband, srow0, vmask, block,
+                            chunk_blocks, n_rows)
     return _to_pixels(out.reshape(-1), index, feats.shape[0])
 
 
-def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64,
-                           index=None):
-    if index is not None:
-        out = _crosspol_argmin_plain(cr_lut, w_half, _slot_rows(feats, index, 4), band_of_block,
-                                     block, chunk_blocks)
-        return _to_pixels(out.reshape(-1), index, feats.shape[0])
+def _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, chunk_blocks=64, *,
+                           index):
     n_blocks = band_of_block.shape[0]
-    f = feats.reshape(n_blocks, block, 4, 1)
+    f = _slot_rows(feats, index, 4).reshape(n_blocks, block, 4, 1)
     out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device)
     for b0 in range(0, n_blocks, chunk_blocks):
         b1 = min(b0 + chunk_blocks, n_blocks)
         fb = f[b0:b1]
         out[b0:b1] = _crosspol_plain(cr_lut[band_of_block[b0:b1].to(torch.int64)][:, None],
                                      w_half, fb[:, :, 0], fb[:, :, 1], fb[:, :, 2], fb[:, :, 3])
-    return out
+    return _to_pixels(out.reshape(-1), index, feats.shape[0])
 
 
 def _below_merge_speed(re, im):
@@ -664,24 +651,39 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build_kernels():
-    """Compile ``csrc/*.cu`` into one shared library (once per source
-    content, flags and nvcc version) and return its path. A failed build
-    raises."""
+def _included(source):
+    """``source`` and the ``csrc/`` headers it includes, directly or not."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.append(name)
+            todo += re.findall(r'^#include "([^"]+)"', (_CSRC / name).read_text(), re.M)
+    return seen
+
+
+def build_kernels(sources=_SOURCES, name="inversion"):
+    """Compile the ``csrc/`` ``sources`` into one shared library,
+    ``libxsarsea_<name>_<hash>.so`` (once per content of the sources and the
+    headers they include, flags and nvcc version), and return its path: by
+    default the main path's library. ``build_log`` holds the compiler's
+    output of the last build this call made (empty when the library was
+    there already). A failed build raises."""
     global build_log
     nvcc = _nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                              check=True).stdout
     h = hashlib.sha256((" ".join(_NVCC_FLAGS) + version).encode())
-    for path in sorted(_CSRC.iterdir()):
-        h.update(path.name.encode() + path.read_bytes())
+    for path in sorted({f for src in sources for f in _included(src)}):
+        h.update(path.encode() + (_CSRC / path).read_bytes())
     build_dir = _build_dir()
-    lib = build_dir / f"libxsarsea_inversion_{h.hexdigest()[:16]}.so"
+    lib = build_dir / f"libxsarsea_{name}_{h.hexdigest()[:16]}.so"
     if lib.exists():
+        build_log = ""
         return lib
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
+    cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -690,44 +692,39 @@ def build_kernels():
     return lib
 
 
+def _bind(path, entries):
+    """The library at ``path`` with each entry point of ``entries`` (name ->
+    argument types) returning an int CUDA error code, which its
+    ``xs_error_string`` names."""
+    lib = ctypes.CDLL(str(path))
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.xs_error_string.argtypes = [ctypes.c_int]
+    lib.xs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ENTRIES = {
+    "xs_group_argmin": [_p] * 6 + [_i] + [_p] * 2 + [_i] * 5 + [_p],
+    "xs_group_argmin_streamed": [_p] * 7 + [_i] + [_p] * 3 + [_i] * 6 + [_p],
+    "xs_slab_refine_fused": [_p] * 9 + [_i] + [_p] * 4 + [_ll] + [_i] * 8 + [_p],
+    "xs_slab_refine": [_p] * 5 + [_i] + [_p] * 4 + [_i] * 7 + [_p],
+    "xs_crosspol_argmin": [_p] * 4 + [_i] + [_p] * 2 + [_i] * 3 + [_p],
+    "xs_chunk_lower_bounds": [_p] * 3 + [_i] * 2 + [_p],
+    "xs_dual_merge": [_p] * 6 + [_ll, _p],
+}
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
             spans.count("builds")
             with spans.span("xs.build"):
-                lib = ctypes.CDLL(str(build_kernels()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            ll = ctypes.c_longlong
-            lib.xs_group_argmin.argtypes = [p] * 6 + [i] + [p] * 2 + [i] * 5 + [p]
-            lib.xs_group_argmin.restype = i
-            lib.xs_group_argmin_streamed.argtypes = [p] * 7 + [i] + [p] * 3 + [i] * 6 + [p]
-            lib.xs_group_argmin_streamed.restype = i
-            lib.xs_slab_refine_fused.argtypes = [p] * 9 + [i] + [p] * 4 + [ll] + [i] * 8 + [p]
-            lib.xs_slab_refine_fused.restype = i
-            lib.xs_slab_refine.argtypes = [p] * 5 + [i] + [p] * 4 + [i] * 7 + [p]
-            lib.xs_slab_refine.restype = i
-            lib.xs_crosspol_argmin.argtypes = [p] * 4 + [i] + [p] * 2 + [i] * 3 + [p]
-            lib.xs_crosspol_argmin.restype = i
-            lib.xs_crosspol_quotient.argtypes = [p] * 4 + [i, p]
-            lib.xs_crosspol_quotient.restype = i
-            lib.xs_crosspol_quotient_sweep.argtypes = [ctypes.c_uint, ctypes.c_uint, p, p, p]
-            lib.xs_crosspol_quotient_sweep.restype = i
-            lib.xs_slab_forms.argtypes = [i, i] + [p] * 9 + [i] * 6 + [p]
-            lib.xs_slab_forms.restype = i
-            lib.xs_group_argmin_variant.argtypes = [p] * 4 + [i] * 4 + [p]
-            lib.xs_group_argmin_variant.restype = i
-            lib.xs_group_argmin_variant_tc.argtypes = [p] * 4 + [i] * 4 + [p]
-            lib.xs_group_argmin_variant_tc.restype = i
-            lib.xs_split_g4.argtypes = [p, p, i, i, p]
-            lib.xs_split_g4.restype = i
-            lib.xs_chunk_lower_bounds.argtypes = [p] * 3 + [i] * 2 + [p]
-            lib.xs_chunk_lower_bounds.restype = i
-            lib.xs_dual_merge.argtypes = [p] * 6 + [ll, p]
-            lib.xs_dual_merge.restype = i
-            lib.xs_error_string.argtypes = [i]
-            lib.xs_error_string.restype = ctypes.c_char_p
-            _lib = lib
+                _lib = _bind(build_kernels(), _ENTRIES)
     return _lib
 
 
@@ -760,33 +757,28 @@ def _in_range(t, lo, hi, name):
             raise ValueError(f"{name} values [{mn}, {mx}] outside [{lo}, {hi})")
 
 
-def _count_rows(n_slots, index):
-    """A launch's ``n_slots`` slots, read through ``index`` (counter
-    ``perm_rows_read``) or from a bucket-ordered copy made beforehand
-    (``rows_gathered``): from shapes, no host wait."""
-    spans.count("rows_gathered" if index is None else "perm_rows_read", n_slots)
+def _count_rows(n_slots):
+    """A launch's ``n_slots`` slots, read through the bucket permutation
+    (counter ``perm_rows_read``): from shapes, no host wait."""
+    spans.count("perm_rows_read", n_slots)
 
 
 def _rows_args(name, feats, index, n_slots, width, vector=False):
-    """Check a launch's feature rows and return ``(index pointer, row stride
-    in floats)``: without an index, ``feats`` (n_slots, width) in slot order;
-    with one, ``index`` (n_slots,) int64 on ``feats``' device and ``feats``
-    the pixel table (n_px, C), C >= width. ``vector``: the kernel reads a
+    """Check a launch's feature rows, ``index`` (n_slots,) int64 on
+    ``feats``' device and ``feats`` the pixel table (n_px, C), C >= width,
+    and return the row stride in floats. ``vector``: the kernel reads a
     row's first 4 floats as one 16-byte load. The index's values, in [-1,
     n_px), are the caller's to keep (bucketing makes them so); checking them
     would cost a host wait a launch."""
-    if index is None:
-        _require(feats, "feats", torch.float32, (n_slots, width))
-    else:
-        _cuda_args(feats.device, {"index": (index, torch.int64, (n_slots,))})
-        _require(feats, "feats", torch.float32)
-        if feats.dim() != 2 or feats.shape[1] < width:
-            raise ValueError(f"{name}: the rows table must be (n_px, >= {width}), "
-                             f"got {tuple(feats.shape)}")
+    _cuda_args(feats.device, {"index": (index, torch.int64, (n_slots,))})
+    _require(feats, "feats", torch.float32)
+    if feats.dim() != 2 or feats.shape[1] < width:
+        raise ValueError(f"{name}: the rows table must be (n_px, >= {width}), "
+                         f"got {tuple(feats.shape)}")
     if vector and (feats.shape[1] % 4 or feats.data_ptr() % 16):
         raise ValueError(f"{name}: feats needs 16-byte aligned rows of a multiple of 4 floats, "
                          f"got {feats.shape[1]} floats at {feats.data_ptr() % 16} bytes")
-    return (None if index is None else index.data_ptr()), feats.shape[1]
+    return feats.shape[1]
 
 
 # ------------------------------------------------------------------ wrappers
@@ -794,38 +786,36 @@ def _rows_args(name, feats, index, n_slots, width, vector=False):
 def k1_staged_fits(n_rows, n_cols):
     """Whether K1's staged form can hold an ``n_rows`` x ``n_cols`` grid in
     a block's shared memory (its three planes, row groups and partials, and
-    the features its indexed form gathers)."""
+    the features it gathers)."""
     ld = (n_cols + 3) & ~3
     floats = (3 * n_rows * ld + 2 * 4 * GROUP_BLOCK + n_rows + 3) & ~3
     return (floats + 4 * GROUP_BLOCK) * 4 <= _SMEM_OPTIN
 
 
 def group_argmin(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                 block=GROUP_BLOCK, *, index=None):
+                 block=GROUP_BLOCK, *, index):
     """K1: first-minimum wspd group per pixel over a grid of LUT cells, the
     grid held whole in shared memory (the fused mode's coarse grid).
 
     lut_c (I, R, C), u_half/v_half (R, C) f32 and row_group (R,) i32 come
-    from :func:`build_coarse_arrays`; feats (n_blocks*block, 4) f32 rows
-    (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding slots; band_of_block
-    (n_blocks,) band per block. Returns (n_blocks, block) i32; pixels with no
-    finite cost get ``n_groups - 1``. The kernel takes blocks of
-    ``GROUP_BLOCK`` pixels, a non-decreasing ``row_group`` (each of its
-    chains meets its groups in ascending order; checked once per table,
-    :func:`check_row_group`) and a grid that fits a block's shared memory
-    (:func:`k1_staged_fits`); the plain version takes any.
-    ``index`` (n_blocks*block,) int64: the bucket permutation; feats is then
-    the pixel table (n_px, C), C a multiple of 4 (the fused tail's 8), whose
-    rows' first 4 floats are the features above, and slot s reads row
-    ``index[s]`` (NaN features where it is -1). The result stays in slot
-    order.
+    from :func:`build_coarse_arrays`; feats (n_px, C) f32, the pixel table,
+    C a multiple of 4 (the fused tail's 8), whose rows' first 4 floats are
+    (s0_db, ma/2, mz/2, 1/dsig); ``index`` (n_blocks*block,) int64, the
+    bucket permutation: slot s reads row ``index[s]`` (NaN features where it
+    is -1); band_of_block (n_blocks,) band per block. Returns (n_blocks,
+    block) i32 in slot order; pixels with no finite cost get ``n_groups -
+    1``. The kernel takes blocks of ``GROUP_BLOCK`` pixels, a non-decreasing
+    ``row_group`` (each of its chains meets its groups in ascending order;
+    checked once per table, :func:`check_row_group`) and a grid that fits a
+    block's shared memory (:func:`k1_staged_fits`); the plain version takes
+    any.
     """
     return _group_argmin("group_argmin", lut_c, u_half, v_half, row_group, feats,
                          band_of_block, n_groups, block, index=index)
 
 
 def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                          block=GROUP_BLOCK, *, radii, swept=None, _prune=True, index=None):
+                          block=GROUP_BLOCK, *, index, radii, swept=None, _prune=True):
     """K1's streamed form: :func:`group_argmin` on a grid of any height, its
     rows streamed through shared memory 16 at a time (the fused_exact mode's
     full grid, built by :func:`build_coarse_arrays` at strides 1, or a coarse
@@ -839,10 +829,9 @@ def group_argmin_streamed(lut_c, u_half, v_half, row_group, feats, band_of_block
     an optional ``(n_blocks, 3)`` int32 card tensor, receives each block's
     chunks and grid rows staged and (pixel, row) pairs swept, a pixel
     counted where its s0 is not NaN. ``_prune=False`` sweeps every chunk (A/B
-    and tests). The plain version ignores these three. ``index`` as for
-    :func:`group_argmin`."""
+    and tests). The plain version ignores these three."""
     return _group_argmin("group_argmin_streamed", lut_c, u_half, v_half, row_group, feats,
-                         band_of_block, n_groups, block, radii, swept, _prune, index)
+                         band_of_block, n_groups, block, radii, swept, _prune, index=index)
 
 
 def chunk_lower_bounds(feats, radii):
@@ -868,10 +857,10 @@ def chunk_lower_bounds(feats, radii):
 
 
 def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                  block, radii=None, swept=None, prune=True, index=None):
+                  block, radii=None, swept=None, prune=True, *, index):
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
-        _count_rows(n_blocks * block, index)
+        _count_rows(n_blocks * block)
         return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                    n_groups, block, index=index)
     if feats.device.type != "cuda":
@@ -885,7 +874,7 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
         "v_half": (v_half, torch.float32, (n_rows, n_cols)),
         "row_group": (row_group, torch.int32, (n_rows,)),
         "band_of_block": (band, torch.int32, None)})
-    index_ptr, stride = _rows_args(name, feats, index, n_blocks * block, 4, vector=True)
+    stride = _rows_args(name, feats, index, n_blocks * block, 4, vector=True)
     if block != GROUP_BLOCK:
         raise ValueError(f"{name}: the kernel takes blocks of {GROUP_BLOCK} pixels")
     if not streamed and not k1_staged_fits(n_rows, n_cols):
@@ -905,7 +894,7 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.xs_group_argmin_streamed(
                 lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
-                radii.data_ptr(), feats.data_ptr(), index_ptr, stride, band.data_ptr(),
+                radii.data_ptr(), feats.data_ptr(), index.data_ptr(), stride, band.data_ptr(),
                 out.data_ptr(), None if swept is None else swept.data_ptr(), n_blocks, block,
                 n_rows, n_cols, n_groups, int(bool(prune)), stream)
     else:
@@ -913,11 +902,11 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.xs_group_argmin(
                 lut_c.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), row_group.data_ptr(),
-                feats.data_ptr(), index_ptr, stride, band.data_ptr(), out.data_ptr(),
+                feats.data_ptr(), index.data_ptr(), stride, band.data_ptr(), out.data_ptr(),
                 n_blocks, block, n_rows, n_cols, n_groups, stream)
     _check(lib, rc, name)
     _count(name)
-    _count_rows(n_blocks * block, index)
+    _count_rows(n_blocks * block)
     return out
 
 
@@ -949,37 +938,33 @@ def _check_smem(n_bytes, name):
 
 
 def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
-                      srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS, *,
-                      chunk_rows=8, index=None):
+                      srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS, *, index,
+                      chunk_rows=8):
     """K2: slab refine + decode + crosspol argmin per (band, group) block.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
     :func:`build_direct_arrays`; w_pad (Wp,) wspd per row; co_phir (P,)
     phi in radians; cr_lut (I, Wc), cr_whalf (Wc,) from
     :func:`build_crosspol_arrays` (ignored with ``has_cr=False``); feats
-    (n_blocks*block, 8) f32 rows (s0_db, ma/2, mz/2, 1/dsig, s0_cr_db,
-    dsig_cr, 0, 0), NaN rows for padding; sband, srow0, vmask (n_blocks,):
-    LUT band, first of the ``n_rows`` slab rows (48 in the fused mode, 32 in
-    fused_exact) and a 0 for all-padding blocks (their output is 0). Returns
-    (n_blocks, 4, block) f32 rows (wspd_co, phi, wspd_cr, 0).
+    (n_px, C >= 8) f32, the pixel table, rows (s0_db, ma/2, mz/2, 1/dsig,
+    s0_cr_db, dsig_cr, 0, 0); ``index`` (n_blocks*block,) int64, the bucket
+    permutation: slot s reads row ``index[s]`` (NaN features where it is
+    -1); sband, srow0, vmask (n_blocks,): LUT band, first of the ``n_rows``
+    slab rows (48 in the fused mode, 32 in fused_exact) and a 0 for
+    all-padding blocks. Returns (3, n_px) f32 in pixel order, rows (wspd_co,
+    phi, wspd_cr) written at ``index[s]`` (0 at a pixel no slot names, or
+    whose block is all padding; every pixel in at most one slot).
     A pixel whose slab costs hold a NaN gets (0, 0); its crosspol cost
     likewise gives 0. ``chunk_rows`` (:data:`CHUNK_ROWS`): the slab rows a
     shared-memory stage of the kernel's sweep holds; every value gives the
     same bits (no path passes it; ``scripts/bench_slab_variants.py`` times
     them). A height whose stages do not fit a block's shared memory is
     refused with the bytes it needs.
-
-    ``index`` (n_blocks*block,) int64, the bucket permutation: feats is then
-    the pixel table (n_px, C >= 8) whose rows are the features above, slot s
-    reads row ``index[s]`` (NaN features where it is -1), and the result is
-    (3, n_px) f32 in pixel order, rows (wspd_co, phi, wspd_cr) written at
-    ``index[s]`` (0 at a pixel no slot names; every pixel in at most one
-    slot). The kernel's indexed form runs at ``chunk_rows=8``.
     """
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine_fused")
     if feats.device.type == "cpu":
-        _count_rows(n_blocks * block, index)
+        _count_rows(n_blocks * block)
         return _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
                                         cr_whalf, feats, sband, srow0, vmask, has_cr, block,
                                         n_rows, index=index)
@@ -998,9 +983,7 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
         "cr_whalf": (cr_whalf, torch.float32, None),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
-    index_ptr, stride = _rows_args("slab_refine_fused", feats, index, n_blocks * block, 8)
-    if index is not None and chunk_rows != 8:
-        raise ValueError("slab_refine_fused: the indexed form runs at chunk_rows=8")
+    stride = _rows_args("slab_refine_fused", feats, index, n_blocks * block, 8)
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine_fused: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine_fused")
@@ -1009,43 +992,41 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
     n_px = feats.shape[0]
-    out = torch.empty((n_blocks, 4, block), dtype=torch.float32, device=feats.device) \
-        if index is None else torch.zeros((3, n_px), dtype=torch.float32, device=feats.device)
+    out = torch.zeros((3, n_px), dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_slab_refine_fused(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), w_pad.data_ptr(),
             co_phir.data_ptr(), cr_lut.data_ptr(), cr_whalf.data_ptr(), feats.data_ptr(),
-            index_ptr, stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
+            index.data_ptr(), stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
             out.data_ptr(), n_px, n_blocks, block, wp_rows, n_phi, n_rows, n_cr,
             int(bool(has_cr)), chunk_rows, stream)
     _check(lib, rc, "slab_refine_fused")
     _count("slab_refine_fused", chunk_rows)
-    _count_rows(n_blocks * block, index)
+    _count_rows(n_blocks * block)
     return out
 
 
 def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_BLOCK,
-                n_rows=SLAB_ROWS, *, chunk_rows=8, index=None):
+                n_rows=SLAB_ROWS, *, index, chunk_rows=8):
     """K3: slab refine per (band, group) block, emitting the flat index.
 
     lut_pad (I, Wp, P), u_half/v_half (Wp, P) from
-    :func:`build_direct_arrays`; feats (n_blocks*block, 4) f32 rows
-    (s0_db, ma/2, mz/2, 1/dsig), NaN rows for padding; sband, srow0, vmask
-    (n_blocks,) and ``n_rows`` as for :func:`slab_refine_fused`. Returns (n_blocks, block)
-    i32: the winner's row-major index ``row * P + col`` into the true
-    (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
+    :func:`build_direct_arrays`; feats (n_px, C >= 4) f32, the pixel table,
+    rows (s0_db, ma/2, mz/2, 1/dsig); ``index``, sband, srow0, vmask and
+    ``n_rows`` as for :func:`slab_refine_fused`. Returns (n_px,) i32 in
+    pixel order: the winner's row-major index ``row * P + col`` into the
+    true (W, P) grid; ``2**30`` for a pixel whose slab costs hold a NaN and
     ``((2**30 // P) & ~1) * P`` for one with no finite cost (the reference's
-    sentinels: clip before use as an index); 0 in all-padding blocks.
-    ``chunk_rows`` as for :func:`slab_refine_fused`. ``index``: as there,
-    feats then the pixel table (n_px, C >= 4), and the result (n_px,) i32
-    in pixel order (0 at a pixel no slot names).
+    sentinels: clip before use as an index); 0 at a pixel no slot names or
+    whose block is all padding. ``chunk_rows`` as for
+    :func:`slab_refine_fused`.
     """
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine")
     if feats.device.type == "cpu":
-        _count_rows(n_blocks * block, index)
+        _count_rows(n_blocks * block)
         return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
                                   n_rows, index=index)
     if feats.device.type != "cuda":
@@ -1058,49 +1039,44 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         "v_half": (v_half, torch.float32, (wp_rows, n_phi)),
         "sband": (i32[0], torch.int32, None), "srow0": (i32[1], torch.int32, None),
         "vmask": (i32[2], torch.int32, None)})
-    index_ptr, stride = _rows_args("slab_refine", feats, index, n_blocks * block, 4)
-    if index is not None and chunk_rows != 8:
-        raise ValueError("slab_refine: the indexed form runs at chunk_rows=8")
+    stride = _rows_args("slab_refine", feats, index, n_blocks * block, 4)
     if block != SLAB_BLOCK:
         raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine")
     _check_smem(slab_smem_bytes(n_phi, n_rows, chunk_rows), "slab_refine")
     _in_range(i32[0], 0, n_inc, "sband")
     _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
-    out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device) \
-        if index is None else torch.zeros(feats.shape[0], dtype=torch.int32, device=feats.device)
+    out = torch.zeros(feats.shape[0], dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_slab_refine(
             lut_pad.data_ptr(), u_half.data_ptr(), v_half.data_ptr(), feats.data_ptr(),
-            index_ptr, stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
+            index.data_ptr(), stride, i32[0].data_ptr(), i32[1].data_ptr(), i32[2].data_ptr(),
             out.data_ptr(), n_blocks, block, wp_rows, n_phi, n_rows, _no_hit_flat(n_phi),
             chunk_rows, stream)
     _check(lib, rc, "slab_refine")
     _count("slab_refine", chunk_rows)
-    _count_rows(n_blocks * block, index)
+    _count_rows(n_blocks * block)
     return out
 
 
-def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, index=None):
+def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, index):
     """K4: crosspol wind-speed argmin per block sharing one crosspol band.
 
     cr_lut (I, Wc), w_half (Wc,) from :func:`build_crosspol_arrays`; feats
-    (n_blocks*block, 4) f32 rows (s0_cr_db, dsig_cr, wco/2, has_co) with
-    wco/2 = 0 where has_co = 0, NaN rows for padding; band_of_block
-    (n_blocks,) crosspol band per block. Returns (n_blocks, block) f32: the
-    first-minimum wind speed in m/s, 0 where any cost is NaN. The kernel
-    takes blocks of ``CR_BLOCK`` pixels; the plain version takes any.
-    ``index`` (n_blocks*block,) int64, the bucket permutation: feats is then
-    the pixel table (n_px, C), C a multiple of 4, whose rows' first 4
-    floats are the features above, slot s reads row ``index[s]`` (NaN
-    features where it is -1), and the result is (n_px,) f32 in pixel order
-    (0 at a pixel no slot names; every pixel in at most one slot).
+    (n_px, C) f32, the pixel table, C a multiple of 4, whose rows' first 4
+    floats are (s0_cr_db, dsig_cr, wco/2, has_co) with wco/2 = 0 where
+    has_co = 0; ``index`` (n_blocks*block,) int64, the bucket permutation:
+    slot s reads row ``index[s]`` (NaN features where it is -1);
+    band_of_block (n_blocks,) crosspol band per block. Returns (n_px,) f32
+    in pixel order: the first-minimum wind speed in m/s, 0 where any cost is
+    NaN or at a pixel no slot names (every pixel in at most one slot). The
+    kernel takes blocks of ``CR_BLOCK`` pixels; the plain version takes any.
     """
     n_blocks = band_of_block.shape[0]
     if feats.device.type == "cpu":
-        _count_rows(n_blocks * block, index)
+        _count_rows(n_blocks * block)
         return _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"crosspol_argmin: unsupported device {feats.device}")
@@ -1110,73 +1086,21 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, ind
         "cr_lut": (cr_lut, torch.float32, None),
         "w_half": (w_half, torch.float32, (n_cr,)),
         "band_of_block": (band, torch.int32, None)})
-    index_ptr, stride = _rows_args("crosspol_argmin", feats, index, n_blocks * block, 4,
-                                   vector=True)
+    stride = _rows_args("crosspol_argmin", feats, index, n_blocks * block, 4, vector=True)
     if block != CR_BLOCK:
         raise ValueError(f"crosspol_argmin: the kernel takes blocks of {CR_BLOCK} pixels")
     _in_range(band, 0, n_inc, "band_of_block")
-    out = torch.empty((n_blocks, block), dtype=torch.float32, device=feats.device) \
-        if index is None else torch.zeros(feats.shape[0], dtype=torch.float32, device=feats.device)
+    out = torch.zeros(feats.shape[0], dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.xs_crosspol_argmin(cr_lut.data_ptr(), w_half.data_ptr(), feats.data_ptr(),
-                                    index_ptr, stride, band.data_ptr(), out.data_ptr(), n_blocks,
-                                    block, n_cr, stream)
+                                    index.data_ptr(), stride, band.data_ptr(), out.data_ptr(),
+                                    n_blocks, block, n_cr, stream)
     _check(lib, rc, "crosspol_argmin")
     _count("crosspol_argmin")
-    _count_rows(n_blocks * block, index)
+    _count_rows(n_blocks * block)
     return out
-
-
-def crosspol_quotient(a, b):
-    """The quotient ``a / b`` as the crosspol argmin's kernels compute it
-    (``xs::crosspol::quotient``), elementwise over two float32 tensors of
-    one shape: the hoisted route (a correctly rounded reciprocal of ``b``,
-    one product and one residual step by two explicit fused multiply-adds)
-    where ``b`` and ``a`` lie inside its windows, the true divide elsewhere.
-    Returns ``(q, hoisted)``, ``hoisted`` a bool tensor of the elements
-    that took the hoisted route.
-    It is there to be held against the true divide, which is what runs for
-    CPU tensors (``hoisted`` all False); it is on no path of the inversion
-    and counts no launch.
-    """
-    if a.shape != b.shape:
-        raise ValueError(f"crosspol_quotient: shapes {tuple(a.shape)} and {tuple(b.shape)}")
-    if a.device.type == "cpu":
-        return a / b, torch.zeros(a.shape, dtype=torch.bool)
-    if a.device.type != "cuda":
-        raise ValueError(f"crosspol_quotient: unsupported device {a.device}")
-    _cuda_args(a.device, {"a": (a, torch.float32, None), "b": (b, torch.float32, None)})
-    out = torch.empty_like(a)
-    hoisted = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    lib = _load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.xs_crosspol_quotient(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                      hoisted.data_ptr(), a.numel(), stream)
-    _check(lib, rc, "crosspol_quotient")
-    return out, hoisted.to(torch.bool)
-
-
-def crosspol_quotient_sweep(b_first, b_count, device="cuda"):
-    """The hoisted quotient against the true divide on every dividend
-    significand (2**23 values in [1, 2)) for the divisors ``1 + i * 2**-23``,
-    ``b_first <= i < b_first + b_count``, on the card. Returns ``(differing
-    pairs, examples)``, examples a list of up to 16 ``(dividend, divisor)``
-    float pairs."""
-    dev = torch.device(device)
-    found = torch.zeros(2, dtype=torch.int64, device=dev)
-    examples = torch.zeros(32, dtype=torch.int32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.xs_crosspol_quotient_sweep(b_first, b_count, found.data_ptr(),
-                                            examples.data_ptr(), stream)
-    _check(lib, rc, "crosspol_quotient_sweep")
-    n_bad, n_examples = (int(x) for x in found.tolist())
-    pairs = examples.view(torch.float32).reshape(16, 2)[:min(n_examples, 16)].tolist()
-    return n_bad, [tuple(pair) for pair in pairs]
 
 
 def dual_merge(co_re, co_im, du_re, du_im):
@@ -1213,12 +1137,12 @@ def dual_merge(co_re, co_im, du_re, du_im):
 
 def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                  n_groups, block=GROUP_BLOCK, radii=None, swept=None,
-                                 _prune=True, chunk_blocks=16, index=None):
+                                 _prune=True, chunk_blocks=16, *, index):
     """K1's streamed form has K1's plain version, unpruned: pruning leaves
     every answer as it is. ``radii``, ``swept`` and ``_prune`` are the
     kernel's and are ignored."""
     return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
-                               block, chunk_blocks, index)
+                               block, chunk_blocks, index=index)
 
 
 KERNELS = {"group_argmin": group_argmin, "group_argmin_streamed": group_argmin_streamed,

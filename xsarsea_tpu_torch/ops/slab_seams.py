@@ -109,6 +109,12 @@ class SeamCases:
         ops = (lut_pad, u_half, v_half, self.feats[:, :4], self.sband, self.srow0, self.vmask)
         return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in ops)
 
+    def index(self, device):
+        """The kernels' ``index``: the identity permutation, the rows being
+        in slot order already, so K2's and K3's results come back in slot
+        order."""
+        return torch.arange(self.feats.shape[0], device=device)
+
 
 def seam_cases(n_phi=181, n_wspd=70, n_cr=90, seed=0, n_rows=K.SLAB_ROWS):
     """The adversarial block set at width ``n_phi`` and slab height

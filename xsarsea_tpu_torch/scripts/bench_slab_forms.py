@@ -96,10 +96,9 @@ def prepare(tables, inc, s0_db, anc, device, dsig_co=DSIG_CO):
     perm, band_of_block = bucket_by_band(nearest_index_sorted(inc_grid, dev(inc)), n_inc,
                                          K.GROUP_BLOCK)
     base = torch.stack([s0, ma * 0.5, mz * 0.5, torch.full((n,), inv_dsig, device=device)], 1)
-    feats1 = torch.where((perm >= 0)[:, None], base[perm.clamp(min=0)], float("nan"))
     gstar = K.group_argmin(*(dev(a) for a in (lut_c, u_c, v_c)),
-                           dev(row_group, torch.int32), feats1, band_of_block, n_wgroups,
-                           block=K.GROUP_BLOCK).reshape(-1)
+                           dev(row_group, torch.int32), base, band_of_block, n_wgroups,
+                           block=K.GROUP_BLOCK, index=perm).reshape(-1)
     perm2, key_of_block = inv._rebucket_slot(perm, gstar, band_of_block, n_inc=n_inc,
                                              n_wgroups=n_wgroups, block=K.GROUP_BLOCK,
                                              slab_block=K.SLAB_BLOCK)

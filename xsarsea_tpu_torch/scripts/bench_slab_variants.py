@@ -44,7 +44,8 @@ DSIG_CR = 0.1
 def prepare(tables, n, device):
     """The scene and its stage 1-4 arguments: ``{"slab_refine": K3's
     positional arguments, "slab_refine_fused": K2's}`` (``has_cr=True``,
-    48-row slabs)."""
+    48-row slabs), their feature rows in slot order (read through the
+    identity index, so the results come back in slot order)."""
     inc, wspd, phi, anc = bench_slab_forms.draw_scene(n)
     dev = [torch.as_tensor(a, device=device) for a in (inc, wspd, phi)]
     s0 = get_model("gmf_cmod5n")(*dev, broadcast=True).cpu().numpy()
@@ -69,9 +70,10 @@ def prepare(tables, n, device):
 def main(n=N, device="cuda", **lut_kw):
     """Run the experiment and print its lines; ``lut_kw`` (e.g. ``inc_step``)
     goes to ``to_lut`` (the default is the high-resolution LUT). Returns
-    ``{"args": {kernel: args}, "kernels": {kernel: {chunk_rows: {"out",
-    "ms", "equal"}}}, "refused": {kernel: {chunk_rows: message}}, "n",
-    "slots"}``, kernel ``slab_refine`` (K3) or ``slab_refine_fused`` (K2),
+    ``{"args": {kernel: args}, "index", "kernels": {kernel: {chunk_rows:
+    {"out", "ms", "equal"}}}, "refused": {kernel: {chunk_rows: message}},
+    "n", "slots"}``, ``index`` the identity the kernels read the rows
+    through, kernel ``slab_refine`` (K3) or ``slab_refine_fused`` (K2),
     ``equal`` whether the height's outputs are bit-equal to 8's on the
     blocks that are not all padding; times are None on the CPU."""
     dev = device_of(device)
@@ -79,6 +81,8 @@ def main(n=N, device="cuda", **lut_kw):
     args = prepare(tables, n, dev)
     vmask = args["slab_refine"][-1].to(torch.bool)
     slots = int(args["slab_refine"][3].shape[0])
+    index = torch.arange(slots, device=dev)  # the rows are in slot order already
+    live = vmask.repeat_interleave(K.SLAB_BLOCK)  # the slots of blocks not all padding
     print(f"pixels {n} | slab rows {K.SLAB_ROWS} | LUT {tables.co_lut.shape} | slots {slots} "
           f"in {vmask.numel()} blocks ({int(vmask.sum())} not all padding) | device {dev}",
           flush=True)
@@ -88,24 +92,25 @@ def main(n=N, device="cuda", **lut_kw):
         calls, outs, refused[name] = {}, {}, {}
         for rows in K.CHUNK_ROWS:
             try:
-                outs[rows] = fn(*a, chunk_rows=rows)
+                outs[rows] = fn(*a, chunk_rows=rows, index=index)
             except ValueError as e:  # a height whose stages do not fit shared memory
                 refused[name][rows] = str(e)
                 print(f"{name} chunk_rows={rows:2d}  FAILED: {type(e).__name__}: {e}",
                       flush=True)
                 continue
-            calls[rows] = lambda fn=fn, a=a, rows=rows: fn(*a, chunk_rows=rows)
+            calls[rows] = lambda fn=fn, a=a, rows=rows: fn(*a, chunk_rows=rows, index=index)
         times = cuda_ms_turns(calls, rounds=REPS) if dev.type == "cuda" else {}
         kernels[name] = {}
         for rows, out in outs.items():
-            equal = bool(torch.equal(out[vmask], outs[8][vmask]))
+            equal = bool(torch.equal(out[..., live], outs[8][..., live]))
             ms = times.get(rows)
             kernels[name][rows] = {"out": out, "ms": ms, "equal": equal}
             timing = "not timed (plain version on the CPU)" if ms is None else \
                 f"{ms:9.3f} ms   {ms * 1e6 / n:6.2f} ns/px"
             print(f"{name} chunk_rows={rows:2d} {timing}   bit-equal vs 8: {equal}",
                   flush=True)
-    return {"args": args, "kernels": kernels, "refused": refused, "n": n, "slots": slots}
+    return {"args": args, "index": index, "kernels": kernels, "refused": refused, "n": n,
+            "slots": slots}
 
 
 if __name__ == "__main__":

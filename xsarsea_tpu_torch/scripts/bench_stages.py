@@ -41,6 +41,12 @@ from xsarsea_tpu_torch.windspeed import inversion as inv
 N = 1 << 23
 
 
+def _identity(rows):
+    """The index of rows already in slot order: K1 and K2 read slot s's row
+    at s and K2 writes its results in slot order."""
+    return torch.arange(rows.shape[0], device=rows.device)
+
+
 def make_pixels(n, device):
     """The benchmark's pixels (seed 0: incidence U(18, 47) deg, speed
     U(0.5, 45) m/s, direction U(0, 360) deg, ancillary noise N(0, 1.5)),
@@ -111,8 +117,9 @@ class _Pipeline:
         return torch.where((perm >= 0)[:, None], pix[perm.clamp(min=0), :4], float("nan"))
 
     def k1(self, feats1, band_of_block):
+        # the rows are gathered into slot order already: the identity index
         return K.group_argmin(*self.k1_ops, feats1, band_of_block, self.n_wgroups,
-                              block=K.GROUP_BLOCK).reshape(-1)
+                              block=K.GROUP_BLOCK, index=_identity(feats1)).reshape(-1)
 
     def rebucket(self, perm, gstar, band_of_block):
         perm2, key_of_block = inv._rebucket_slot(
@@ -132,14 +139,13 @@ class _Pipeline:
     def k2(self, feats2, sband, srow0, vmask):
         return K.slab_refine_fused(*self.direct, self.co_phir, *self.cr_ops, feats2, sband,
                                    srow0, vmask, has_cr=True, block=K.SLAB_BLOCK,
-                                   n_rows=self.slab_rows)
+                                   n_rows=self.slab_rows, index=_identity(feats2))
 
     def finish(self, vals, perm2, valid2, inputs):
         inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im = inputs
         n = inc.shape[0]
-        slots = vals.permute(1, 0, 2).reshape(4, -1)[:, valid2]
         res = torch.empty((3, n), dtype=torch.float32, device=inc.device)
-        res[:, perm2[valid2]] = slots[:3]
+        res[:, perm2[valid2]] = vals[:, valid2]
         return inv._postprocess_vectorized(
             inc, s0_co_db, s0_cr_db, dsig_cr, anc_re, anc_im, res[0], torch.cos(res[1]),
             torch.sin(res[1]), res[1], res[2], phi_180=self.phi_180, has_cr=True)

@@ -27,7 +27,7 @@ import time
 
 import torch
 
-from xsarsea_tpu_torch.ops import inversion_kernels as K
+from xsarsea_tpu_torch.ops import experiment_kernels as E
 from xsarsea_tpu_torch.scripts import device_of
 
 SIGNIFICANDS = 1 << 23
@@ -43,7 +43,7 @@ def main(divisors=SIGNIFICANDS, device="cuda"):
     t0 = time.perf_counter()
     differing, examples = 0, []
     for b_first in starts:
-        bad, ex = K.crosspol_quotient_sweep(b_first, run, dev)
+        bad, ex = E.crosspol_quotient_sweep(b_first, run, dev)
         differing += bad
         examples = (examples + ex)[:16]
     result = {"divisors": len(starts) * run, "pairs": len(starts) * run * SIGNIFICANDS,

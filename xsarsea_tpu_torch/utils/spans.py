@@ -13,9 +13,7 @@
   ``pinned_new_bytes``, ``builds``, the dual-pol pixels merged by the
   ``dual_merge`` kernel (``merge_px_card``) and by numpy on the host
   (``merge_px_host``), the bucket slots K1-K4 read through the bucket
-  permutation (``perm_rows_read``) or from a bucket-ordered copy of their
-  feature rows made beforehand (``rows_gathered``; 0 on the fused path,
-  whose kernels take the permutation), and the kernel launches of each wrapper
+  permutation (``perm_rows_read``), and the kernel launches of each wrapper
   (``launch/<wrapper>`` for the inversion's kernels,
   ``launch.experiment/<kernel>`` for the experiment kernels).
 * :class:`call` is the ``xs.call`` span of one entry-point call. While
@@ -65,8 +63,7 @@ __all__ = ["span", "count", "counters", "reset", "call", "start_recording", "sto
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _counters = dict.fromkeys(("pieces", "read_bytes", "h2d_bytes", "d2h_bytes", "pinned_new_bytes",
-                           "builds", "merge_px_card", "merge_px_host", "perm_rows_read",
-                           "rows_gathered"), 0)
+                           "builds", "merge_px_card", "merge_px_host", "perm_rows_read"), 0)
 # set by utils.trace: its profiler follows every thread, where the
 # profiler-enabled check reads false even on the thread that started it
 _all_threads = False

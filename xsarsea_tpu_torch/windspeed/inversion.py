@@ -599,7 +599,7 @@ class _PreparedSource:
         """True when every array already is a tensor on ``device``: a piece
         is then a view, and there is no preparation to overlap."""
         return all(isinstance(a, torch.Tensor) and a.device.type == device.type
-                   and (device.index is None or a.device == device) for a in self._arrs)
+                   and device.index in (None, a.device.index) for a in self._arrs)
 
     def streams(self, lo, hi, device, dtype):
         return [staging.to_device(a[lo:hi], device, dtype) for a in self._arrs]
