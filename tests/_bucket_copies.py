@@ -13,12 +13,17 @@ Imports no JAX.
   did with the copies;
 * :func:`kernel_case`: operands of one kernel, its rows table and the bucket
   permutation of ``n_px`` pixels (a partial last block, padding slots, a NaN
-  block), on any device; :func:`run_both` launches it both ways.
+  block), on any device; :func:`run_both` launches it both ways;
+* :func:`masked_assembly`: the bucket assembly as it was before it became
+  free of host waits, with six boolean-mask selections (each a read back of
+  a mask's size); :func:`masked_bucketing` puts it in place of the
+  bucketing's own for a test's duration.
 """
 
 import numpy as np
 import torch
 
+from xsarsea_tpu_torch.ops import bucketing as B
 from xsarsea_tpu_torch.ops import inversion_kernels as K
 from xsarsea_tpu_torch.ops.bucketing import bucket_by_band
 
@@ -177,3 +182,42 @@ def run_both(name, args, kwargs):
     """Kernel ``name`` through the index, and on the copy made beforehand."""
     fn = getattr(K, name)
     return fn(*args, **kwargs), copied(name, fn, args, kwargs)
+
+
+def masked_assembly(lb_ext, order, n, n_bands, block):
+    """``bucketing._assemble_buckets`` as it was with boolean masks: the
+    entries a mask drops (empty trailing bands' starts, sentinels, block
+    starts past the last block) are selected out instead of sent to a spare
+    slot."""
+    dev = order.device
+    lb = lb_ext[:-1]
+    counts = torch.diff(lb_ext)
+    pad_counts = ((counts + block - 1) // block) * block
+    pad_offsets = torch.cumsum(pad_counts, 0) - pad_counts
+
+    delta = pad_offsets - lb
+    ddelta = torch.diff(delta, prepend=torch.zeros(1, dtype=delta.dtype, device=dev))
+    inside = lb < n
+    sparse = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, lb[inside], ddelta[inside])
+    dest = torch.arange(n, device=dev) + torch.cumsum(sparse, 0)
+
+    n_padded = ((n + block - 1) // block + n_bands) * block
+    keep = torch.arange(n, device=dev) < lb_ext[-1]
+    perm = torch.full((n_padded,), -1, dtype=torch.int64, device=dev)
+    perm[dest[keep]] = order[keep]
+
+    n_blocks = n_padded // block
+    starts = pad_offsets // block
+    inc = torch.ones(n_bands, dtype=torch.int64, device=dev)
+    inc[0] = 0
+    in_range = starts < n_blocks
+    band_of_block = torch.cumsum(torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+                                 .index_add_(0, starts[in_range], inc[in_range]), 0)
+    return perm, band_of_block
+
+
+def masked_bucketing(monkeypatch):
+    """The bucketing assembles with :func:`masked_assembly` until
+    ``monkeypatch`` undoes it."""
+    monkeypatch.setattr(B, "_assemble_buckets", masked_assembly)

@@ -171,3 +171,65 @@ def test_nan_incidence_same_outputs_through_both_bucketing_routes(monkeypatch):
         np.testing.assert_array_equal(a, b)
         assert np.isnan(a[[0, 5, 17, 100]].real).all()
         assert (a[[0, 5, 17, 100]].imag == 0).all()
+
+
+# the sync-free assembly against the boolean-mask one it replaced: each case
+# through the three bucketings, bit for bit
+_CASES = ("empty_middle", "empty_trailing", "sentinels", "all_sentinels", "n_below_block",
+          "single_band", "empty")
+
+
+def _band_case(case):
+    """``(band, n_bands, block)`` of a case; a band of ``n_bands`` is a
+    sentinel."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty_middle":
+        return rng.choice([0, 1, 2, 5, 6, 8, 9], 1000), 10, 64
+    if case == "empty_trailing":
+        return rng.integers(0, 7, 700), 12, 64
+    if case == "sentinels":
+        return rng.integers(0, 8, 900), 7, 64
+    if case == "all_sentinels":
+        return np.full(300, 5), 5, 64
+    if case == "n_below_block":
+        return rng.integers(0, 6, 37), 6, 64
+    if case == "single_band":
+        return np.zeros(500, np.int64), 1, 64
+    return np.zeros(0, np.int64), 4, 64
+
+
+def _bucket(route, band, n_bands, block):
+    rng = np.random.default_rng(7)
+    n = band.shape[0]
+    if route == "by_band":
+        return B.bucket_by_band(torch.as_tensor(band), n_bands, block,
+                                values=torch.as_tensor(rng.permutation(n) + 3))
+    if route == "by_band_sorted":
+        within = rng.integers(0, 50, n).astype(np.float32)  # ties within a band
+        within[::7] = np.nan
+        return B.bucket_by_band_sorted(torch.as_tensor(band), torch.as_tensor(within), n_bands,
+                                       block)
+    # band b's values lie nearest b on the grid 0, 1, ..., n_bands - 1; a
+    # sentinel's value is NaN, which sorts into the last band
+    vals = (band + rng.uniform(-0.3, 0.3, n)).astype(np.float32)
+    vals[band >= n_bands] = np.nan
+    bounds = B.band_boundaries_f32(np.arange(n_bands, dtype=np.float32))
+    keys = np.zeros(0, np.int64) if bounds is None else B._f32_sort_key_np(bounds)
+    return B.bucket_by_value(torch.as_tensor(vals), torch.as_tensor(keys), n_bands, block)
+
+
+@pytest.mark.parametrize("route", ["by_value", "by_band", "by_band_sorted"])
+@pytest.mark.parametrize("case", _CASES)
+def test_sync_free_assembly_equals_the_masked_one(case, route, monkeypatch):
+    from _bucket_copies import masked_bucketing
+
+    band, n_bands, block = _band_case(case)
+    perm, bob = _bucket(route, band, n_bands, block)
+    with monkeypatch.context() as m:
+        masked_bucketing(m)
+        ref_perm, ref_bob = _bucket(route, band, n_bands, block)
+    assert perm.dtype == ref_perm.dtype == torch.int64 and perm.is_contiguous()
+    assert torch.equal(perm, ref_perm)
+    assert bob.dtype == ref_bob.dtype and torch.equal(bob, ref_bob)
+    assert bob.shape[0] == perm.shape[0] // block
+    assert 0 <= int(bob.min()) and int(bob.max()) < n_bands

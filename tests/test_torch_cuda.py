@@ -1392,3 +1392,49 @@ def test_fused_call_reads_through_the_permutation_on_card(cuda, cell, tmp_path, 
         ref_co, ref_dual = resident.invert(program, placed)
     assert same_bits(co, ref_co) and same_bits(dual, ref_dual)
     assert torch.isfinite(co).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("cross_axis", ["shared", "own"])
+def test_resident_pieces_enqueue_with_no_host_wait_on_card(cuda, cross_axis, monkeypatch):
+    """A 2-piece call with its inputs and results on the card, with the
+    fused tail (K1, K2) or the unfused one (K1, K3, K4), runs from its start
+    to its return under ``set_sync_debug_mode("error")``: nothing in it
+    waits for the card, so the host runs ahead of it. Every launch's range
+    guard is waived by the closure's marks and none reads back; the winds
+    equal bit for bit those of the same call through the boolean-mask bucket
+    assembly that read its masks back."""
+    from _bucket_copies import masked_bucketing
+    from xsarsea_tpu_torch.utils import spans
+
+    kw = dict(inc_step=0.5, wspd_step=0.2, phi_step=2.5)
+    cr_kw = kw if cross_axis == "shared" else {**kw, "inc_step": 0.7}
+    tables = InversionTables(get_model("gmf_cmod5n").to_lut(units="dB", **kw),
+                             get_model("gmf_s1_v2").to_lut(units="dB", **cr_kw))
+    n, piece = 1 << 17, 1 << 16
+    pixels = _gmf_pixels(n, 22)
+    dev = [torch.as_tensor(np.asarray(a, np.float32), device=cuda) for a in pixels[:4]]
+    anc = torch.as_tensor(pixels[4].astype(np.complex64), device=cuda)
+
+    def call():
+        return invert_pixels(tables, *dev, anc, mode="fused", device=cuda, device_output=True,
+                             piece_size=piece)
+
+    call()  # builds the closure, which reads its tables back once
+    torch.cuda.synchronize()
+    before = spans.counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        co, dual = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = spans.counters()
+    launches = 2 if cross_axis == "shared" else 3
+    assert after["pieces"] - before["pieces"] == 2
+    assert after["range_checks"] == before["range_checks"]
+    assert after["range_checks_waived"] - before["range_checks_waived"] == 2 * launches
+    with monkeypatch.context() as m:
+        masked_bucketing(m)
+        ref_co, ref_dual = call()
+    for got, ref in ((co, ref_co), (dual, ref_dual)):
+        assert _same_bits(got.cpu().numpy(), ref.cpu().numpy())
+    assert torch.isfinite(co).float().mean() > 0.99

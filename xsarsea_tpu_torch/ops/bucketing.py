@@ -27,9 +27,16 @@ __all__ = [
     "nearest_index_near_uniform",
     "nearest_index_sorted",
     "nearest_index_uniform",
+    "sorted_grid_form",
 ]
 
 DEFAULT_BLOCK = 256  # pixels per stage-1 block (one incidence band each)
+
+
+def _scalar(x, like):
+    """``x`` as a 0-d tensor of ``like``'s dtype on its device, filled there:
+    no host-to-device copy, which would wait for the device."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _first_nearest(values, cands, ks):
@@ -51,11 +58,10 @@ def nearest_index_uniform(g0, step, n, values):
     g0 = float(g0)
     step = float(step)
     # clip to [0, n-1] so 1- and 2-point grids stay valid
-    k0 = torch.clamp(torch.floor((values - g0) * torch.tensor(1.0 / step, dtype=values.dtype,
-                                                              device=values.device)),
+    k0 = torch.clamp(torch.floor((values - g0) * _scalar(1.0 / step, values)),
                      0, n - 1).to(torch.int64)
     ks = [torch.clamp(k0 + dk, 0, n - 1) for dk in (-1, 0, 1)]
-    step_t = torch.tensor(step, dtype=values.dtype, device=values.device)
+    step_t = _scalar(step, values)
     cands = [g0 + k.to(values.dtype) * step_t for k in ks]
     return _first_nearest(values, cands, ks)
 
@@ -85,27 +91,35 @@ def nearest_index_near_uniform(grid, g0, step, values):
     (g0, step) fit, decision on the TRUE grid values of the 3 candidates
     with a strict first-minimum update (bit-matches ``np.argmin``)."""
     n = grid.shape[0]
-    k0 = torch.clamp(torch.floor((values - g0) * torch.tensor(1.0 / step, dtype=values.dtype,
-                                                              device=values.device)),
+    k0 = torch.clamp(torch.floor((values - g0) * _scalar(1.0 / step, values)),
                      0, n - 1).to(torch.int64)
     ks = [torch.clamp(k0 + dk, 0, n - 1) for dk in (-1, 0, 1)]
     return _first_nearest(values, [grid[k] for k in ks], ks)
 
 
-def nearest_index_sorted(grid, values):
+def sorted_grid_form(grid):
+    """How :func:`nearest_index_sorted` searches ``grid``: its
+    :func:`near_uniform_fit` (or None) and whether it descends. Reading it
+    copies a device grid to the host: a caller that looks up many value sets
+    on one grid reads it once and passes it as ``form=``."""
+    gnp = np.asarray(grid.detach().cpu() if torch.is_tensor(grid) else grid, np.float64)
+    return near_uniform_fit(gnp), bool(gnp.shape[0] >= 2 and gnp[0] > gnp[-1])
+
+
+def nearest_index_sorted(grid, values, form=None):
     """Exact nearest index on a sorted grid, matching ``np.argmin(|grid - v|)``.
 
     Ties resolve to the lower index (numpy's first-minimum rule). NaN and
     +-inf values give index 0 (every distance is NaN/inf: first minimum).
     Near-uniform grids take :func:`nearest_index_near_uniform`; others
-    binary-search. ``grid`` is a concrete tensor on the values' device.
+    binary-search. ``grid`` is a concrete tensor on the values' device;
+    ``form`` is its :func:`sorted_grid_form`, read from it when not given.
     """
-    gnp = grid.detach().cpu().numpy().astype(np.float64)
+    fit, descending = sorted_grid_form(grid) if form is None else form
     n = grid.shape[0]
-    fit = near_uniform_fit(gnp)
     if fit is not None:
         return nearest_index_near_uniform(grid, fit[0], fit[1], values)
-    if n >= 2 and gnp[0] > gnp[-1]:
+    if descending:
         # binary search on the reversed (ascending) grid; ties must still
         # resolve to the LOWER original index = higher reversed index
         rev = torch.flip(grid, (0,)).contiguous()
@@ -240,7 +254,11 @@ def bucket_by_value(values_f32, boundary_keys, n_bands, block=DEFAULT_BLOCK):
 def _assemble_buckets(lb_ext, order, n, n_bands, block):
     """Bucket assembly from per-band segment bounds: counts -> padded
     offsets -> destination slots (telescoped sparse add + cumsum) -> one
-    scatter."""
+    scatter.
+
+    Every size comes from ``n``, ``n_bands`` and ``block``, and no value is
+    read back: what a mask would drop goes to one spare trailing slot, cut
+    off afterwards, so the host never waits for the device here."""
     dev = order.device
     lb = lb_ext[:-1]
     counts = torch.diff(lb_ext)
@@ -249,21 +267,21 @@ def _assemble_buckets(lb_ext, order, n, n_bands, block):
 
     delta = pad_offsets - lb
     ddelta = torch.diff(delta, prepend=torch.zeros(1, dtype=delta.dtype, device=dev))
-    inside = lb < n  # empty trailing bands start at n: dropped
-    sparse = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
-        0, lb[inside], ddelta[inside])
-    dest = torch.arange(n, device=dev) + torch.cumsum(sparse, 0)
+    # lb is at most n (a searchsorted over n keys); empty trailing bands
+    # start at n, and their adds land in the spare slot
+    sparse = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(0, lb, ddelta)
+    dest = torch.arange(n, device=dev) + torch.cumsum(sparse[:n], 0)
 
     n_padded = ((n + block - 1) // block + n_bands) * block
-    keep = torch.arange(n, device=dev) < lb_ext[-1]  # sentinels are never placed
-    perm = torch.full((n_padded,), -1, dtype=torch.int64, device=dev)
-    perm[dest[keep]] = order[keep]
+    keep = torch.arange(n, device=dev) < lb_ext[-1]  # sentinels go to the spare slot
+    perm = torch.full((n_padded + 1,), -1, dtype=torch.int64, device=dev)
+    perm = perm.scatter_(0, torch.where(keep, dest, n_padded), order)[:n_padded]
 
     n_blocks = n_padded // block
-    starts = pad_offsets // block
-    inc = torch.ones(n_bands, dtype=torch.int64, device=dev)
-    inc[0] = 0
-    in_range = starts < n_blocks
-    band_of_block = torch.cumsum(torch.zeros(n_blocks, dtype=torch.int64, device=dev)
-                                 .index_add_(0, starts[in_range], inc[in_range]), 0)
+    # a band's first block: below n_blocks (the padded bands fill fewer
+    # blocks), clamped into the spare slot all the same
+    starts = torch.clamp(pad_offsets // block, max=n_blocks)
+    inc = (torch.arange(n_bands, device=dev) > 0).to(torch.int64)
+    band_of_block = torch.cumsum(torch.zeros(n_blocks + 1, dtype=torch.int64, device=dev)
+                                 .index_add_(0, starts, inc)[:n_blocks], 0)
     return perm, band_of_block

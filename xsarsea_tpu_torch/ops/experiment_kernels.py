@@ -364,8 +364,8 @@ def slab_forms(form, lut, u, v, kr, feats, sband, srow0, vmask, block=K.SLAB_BLO
                       "slab_forms")
     else:
         K._check_smem(4 * K.SLAB_ROWS * n_phi * (1 + (kr is not None)), "slab_forms")
-    K._in_range(i32[0], 0, n_inc, "sband")
-    K._in_range(i32[1], 0, wp_rows - K.SLAB_ROWS + 1, "srow0")
+    K._check_ranges((i32[0], 0, n_inc, "sband"),
+                    (i32[1], 0, wp_rows - K.SLAB_ROWS + 1, "srow0"))
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     index_ptr = None  # the thread loop reads its rows in slot order
     if loop == "shared":  # the shared loop reads them as K2 and K3 do, through an index
@@ -454,7 +454,7 @@ def group_argmin_variant(g4, feats, band_of_block, *, block, reduction, precisio
         "g4": (g4, torch.float32, (n_bands, G4_TILES, 4, G4_TILE)),
         "feats": (feats, torch.float32, (n_blocks, 4, block)),
         "band_of_block": (band, torch.int32, None)})
-    K._in_range(band, 0, n_bands, "band_of_block")
+    K._check_ranges((band, 0, n_bands, "band_of_block"))
     out = torch.empty((n_blocks, 1, block), dtype=torch.int32, device=feats.device)
     name = variant_name(block, reduction, precision)
     if engine == "tensor_cores":

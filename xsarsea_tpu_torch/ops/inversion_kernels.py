@@ -109,6 +109,7 @@ __all__ = [
     "group_argmin_streamed",
     "k1_staged_fits",
     "launch_counts",
+    "mark_in_range",
     "reset_launch_counts",
     "slab_refine",
     "slab_refine_fused",
@@ -248,6 +249,22 @@ def check_row_group(row_group, n_groups):
 
 def _row_group_checked(row_group, n_groups):
     return getattr(row_group, "_k1_checked", None) == (row_group._version, n_groups)
+
+
+def mark_in_range(index, lo, hi):
+    """Mark ``index``, a tensor whose maker built it to hold values in
+    ``[lo, hi)``, and return it. The wrappers' range guards then take it as
+    it is, with no read back (a host wait a launch), until it changes in
+    place. The maker vouches for the values: the fused closure marks the
+    block bands and slab rows it builds, which lie in range by construction.
+    Every unmarked index is checked."""
+    index._xs_in_range = (index._version, lo, hi)
+    return index
+
+
+def _marked_in(index, lo, hi):
+    mark = getattr(index, "_xs_in_range", None)
+    return mark is not None and mark[0] == index._version and lo <= mark[1] and mark[2] <= hi
 
 
 def build_decode_arrays(co_wspd, wp_rows):
@@ -749,10 +766,19 @@ def _cuda_args(device, named):
         _require(t, name, dtype, shape)
 
 
-def _in_range(t, lo, hi, name):
-    """Indices the kernel dereferences must lie in [lo, hi) (one sync)."""
-    if t.numel():
-        mn, mx = (int(x) for x in torch.stack(torch.aminmax(t)).tolist())
+def _check_ranges(*guards):
+    """A launch's range guards, ``(index, lo, hi, name)`` each: the values
+    the kernel dereferences must lie in ``[lo, hi)``, else ``ValueError``.
+    The indices not marked by :func:`mark_in_range` are read back together,
+    one host wait for the launch (counter ``range_checks``); a launch with
+    nothing to read back counts under ``range_checks_waived``."""
+    todo = [g for g in guards if g[0].numel() and not _marked_in(*g[:3])]
+    if not todo:
+        spans.count("range_checks_waived")
+        return
+    spans.count("range_checks")
+    ext = torch.stack([torch.stack(torch.aminmax(t)).to(torch.int64) for t, *_ in todo]).tolist()
+    for (_, lo, hi, name), (mn, mx) in zip(todo, ext):
         if mn < lo or mx >= hi:
             raise ValueError(f"{name} values [{mn}, {mx}] outside [{lo}, {hi})")
 
@@ -859,7 +885,9 @@ def chunk_lower_bounds(feats, radii):
 def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, n_groups,
                   block, radii=None, swept=None, prune=True, *, index):
     n_blocks = band_of_block.shape[0]
+    band_guard = (band_of_block, 0, lut_c.shape[0], "band_of_block")
     if feats.device.type == "cpu":
+        _check_ranges(band_guard)
         _count_rows(n_blocks * block)
         return _group_argmin_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                    n_groups, block, index=index)
@@ -882,7 +910,7 @@ def _group_argmin(name, lut_c, u_half, v_half, row_group, feats, band_of_block, 
                          "shared memory; use group_argmin_streamed")
     if not _row_group_checked(row_group, n_groups):
         check_row_group(row_group, n_groups)
-    _in_range(band, 0, lut_c.shape[0], "band_of_block")
+    _check_ranges(band_guard)
     out = torch.empty((n_blocks, block), dtype=torch.int32, device=feats.device)
     lib = _load()
     if streamed:
@@ -937,6 +965,12 @@ def _check_smem(n_bytes, name):
                          f"the {_SMEM_OPTIN} a block may opt in to")
 
 
+def _slab_guards(lut_pad, sband, srow0, n_rows):
+    """K2's and K3's range guards: a block's band and its slab's first row."""
+    n_inc, wp_rows = lut_pad.shape[:2]
+    return (sband, 0, n_inc, "sband"), (srow0, 0, wp_rows - n_rows + 1, "srow0")
+
+
 def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf, feats, sband,
                       srow0, vmask, has_cr=True, block=SLAB_BLOCK, n_rows=SLAB_ROWS, *, index,
                       chunk_rows=8):
@@ -964,6 +998,7 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine_fused")
     if feats.device.type == "cpu":
+        _check_ranges(*_slab_guards(lut_pad, sband, srow0, n_rows))
         _count_rows(n_blocks * block)
         return _slab_refine_fused_plain(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut,
                                         cr_whalf, feats, sband, srow0, vmask, has_cr, block,
@@ -989,8 +1024,7 @@ def slab_refine_fused(lut_pad, u_half, v_half, w_pad, co_phir, cr_lut, cr_whalf,
     _check_rows(n_rows, wp_rows, "slab_refine_fused")
     smem = slab_smem_bytes(n_phi, n_rows, chunk_rows)
     _check_smem(max(smem, 8 * ((n_cr + 3) & ~3)) if has_cr else smem, "slab_refine_fused")
-    _in_range(i32[0], 0, n_inc, "sband")
-    _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
+    _check_ranges(*_slab_guards(lut_pad, sband, srow0, n_rows))
     n_px = feats.shape[0]
     out = torch.zeros((3, n_px), dtype=torch.float32, device=feats.device)
     lib = _load()
@@ -1026,12 +1060,13 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
     n_blocks = sband.shape[0]
     _check_chunk_rows(chunk_rows, "slab_refine")
     if feats.device.type == "cpu":
+        _check_ranges(*_slab_guards(lut_pad, sband, srow0, n_rows))
         _count_rows(n_blocks * block)
         return _slab_refine_plain(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block,
                                   n_rows, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"slab_refine: unsupported device {feats.device}")
-    n_inc, wp_rows, n_phi = lut_pad.shape
+    _, wp_rows, n_phi = lut_pad.shape
     i32 = [x.to(torch.int32) for x in (sband, srow0, vmask)]
     _cuda_args(feats.device, {
         "lut_pad": (lut_pad, torch.float32, None),
@@ -1044,8 +1079,7 @@ def slab_refine(lut_pad, u_half, v_half, feats, sband, srow0, vmask, block=SLAB_
         raise ValueError(f"slab_refine: the kernel takes blocks of {SLAB_BLOCK} pixels")
     _check_rows(n_rows, wp_rows, "slab_refine")
     _check_smem(slab_smem_bytes(n_phi, n_rows, chunk_rows), "slab_refine")
-    _in_range(i32[0], 0, n_inc, "sband")
-    _in_range(i32[1], 0, wp_rows - n_rows + 1, "srow0")
+    _check_ranges(*_slab_guards(lut_pad, sband, srow0, n_rows))
     out = torch.zeros(feats.shape[0], dtype=torch.int32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):
@@ -1075,12 +1109,14 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, ind
     kernel takes blocks of ``CR_BLOCK`` pixels; the plain version takes any.
     """
     n_blocks = band_of_block.shape[0]
+    band_guard = (band_of_block, 0, cr_lut.shape[0], "band_of_block")
     if feats.device.type == "cpu":
+        _check_ranges(band_guard)
         _count_rows(n_blocks * block)
         return _crosspol_argmin_plain(cr_lut, w_half, feats, band_of_block, block, index=index)
     if feats.device.type != "cuda":
         raise ValueError(f"crosspol_argmin: unsupported device {feats.device}")
-    n_inc, n_cr = cr_lut.shape
+    n_cr = cr_lut.shape[1]
     band = band_of_block.to(torch.int32)
     _cuda_args(feats.device, {
         "cr_lut": (cr_lut, torch.float32, None),
@@ -1089,7 +1125,7 @@ def crosspol_argmin(cr_lut, w_half, feats, band_of_block, block=CR_BLOCK, *, ind
     stride = _rows_args("crosspol_argmin", feats, index, n_blocks * block, 4, vector=True)
     if block != CR_BLOCK:
         raise ValueError(f"crosspol_argmin: the kernel takes blocks of {CR_BLOCK} pixels")
-    _in_range(band, 0, n_inc, "band_of_block")
+    _check_ranges(band_guard)
     out = torch.zeros(feats.shape[0], dtype=torch.float32, device=feats.device)
     lib = _load()
     with torch.cuda.device(feats.device):

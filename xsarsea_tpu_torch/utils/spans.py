@@ -13,8 +13,11 @@
   ``pinned_new_bytes``, ``builds``, the dual-pol pixels merged by the
   ``dual_merge`` kernel (``merge_px_card``) and by numpy on the host
   (``merge_px_host``), the bucket slots K1-K4 read through the bucket
-  permutation (``perm_rows_read``), and the kernel launches of each wrapper
-  (``launch/<wrapper>`` for the inversion's kernels,
+  permutation (``perm_rows_read``), the launches whose range guards read
+  their indices back, one host wait each (``range_checks``), the launches
+  whose indices their maker, the fused closure, marked in range, launched
+  with no wait (``range_checks_waived``), and the kernel launches of each
+  wrapper (``launch/<wrapper>`` for the inversion's kernels,
   ``launch.experiment/<kernel>`` for the experiment kernels).
 * :class:`call` is the ``xs.call`` span of one entry-point call. While
   :class:`xsarsea_tpu_torch.utils.trace` records, and only then, it also
@@ -63,7 +66,8 @@ __all__ = ["span", "count", "counters", "reset", "call", "start_recording", "sto
 _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _counters = dict.fromkeys(("pieces", "read_bytes", "h2d_bytes", "d2h_bytes", "pinned_new_bytes",
-                           "builds", "merge_px_card", "merge_px_host", "perm_rows_read"), 0)
+                           "builds", "merge_px_card", "merge_px_host", "perm_rows_read",
+                           "range_checks", "range_checks_waived"), 0)
 # set by utils.trace: its profiler follows every thread, where the
 # profiler-enabled check reads false even on the thread that started it
 _all_threads = False

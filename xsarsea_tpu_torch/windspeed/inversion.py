@@ -66,6 +66,7 @@ from xsarsea_tpu_torch.ops.bucketing import (
     bucket_by_band_sorted,
     bucket_by_value,
     nearest_index_sorted,
+    sorted_grid_form,
 )
 from xsarsea_tpu_torch.utils import logger, staging, timing
 from xsarsea_tpu_torch.utils.spans import call, count, span
@@ -435,6 +436,7 @@ def _make_fused_invert_fn(tables, device, coarse=True):
         cr_ops = tuple(to_dev(a) for a in K.build_crosspol_arrays(tables.cr_lut,
                                                                   tables.cr_wspd))
         cr_grid = to_dev(np.asarray(tables.cr_inc, np.float64).astype(np.float32))
+        cr_form = sorted_grid_form(cr_grid)  # read once: no host copy a piece
     else:  # never read by K2 with has_cr=False
         cr_ops = (torch.zeros((1, 1), dtype=f32, device=dev),
                   torch.zeros((1,), dtype=f32, device=dev))
@@ -444,6 +446,7 @@ def _make_fused_invert_fn(tables, device, coarse=True):
     bounds = band_boundaries_f32(np.asarray(tables.co_inc, np.float32))
     boundary_keys = None if bounds is None else to_dev(_f32_sort_key_np(bounds))
     inc_grid = to_dev(np.asarray(tables.co_inc, np.float64).astype(np.float32))
+    inc_form = sorted_grid_form(inc_grid)
     phi_180 = tables.phi_180
     block = K.GROUP_BLOCK
     nan = float("nan")
@@ -464,7 +467,7 @@ def _make_fused_invert_fn(tables, device, coarse=True):
                 perm, band_of_block = bucket_by_value(inc, boundary_keys, n_inc, block)
             else:
                 band = band_of_value(inc, boundary_keys) if by_value \
-                    else nearest_index_sorted(inc_grid, inc)
+                    else nearest_index_sorted(inc_grid, inc, form=inc_form)
                 if coarse:
                     perm, band_of_block = bucket_by_band(band, n_inc, block)
                 else:
@@ -473,6 +476,11 @@ def _make_fused_invert_fn(tables, device, coarse=True):
                     # close and K1's streamed form sweeps few groups for it
                     perm, band_of_block = bucket_by_band_sorted(
                         band, torch.hypot(pix[:, 1], pix[:, 2]), n_inc, block)
+            # the indices the kernels dereference are built in range here (a
+            # bucketing's block bands lie below its band count, the slab rows
+            # are clamped): marked, the wrappers launch without reading them
+            # back, and the host enqueues the whole piece without a wait
+            K.mark_in_range(band_of_block, 0, n_inc)
 
         with span("xs.coarse"):
             # stage 1: coarse group argmin per incidence-band block (K1), each
@@ -489,6 +497,8 @@ def _make_fused_invert_fn(tables, device, coarse=True):
             sband = torch.div(key_of_block, n_wgroups, rounding_mode="floor")
             srow0 = torch.clamp((key_of_block % n_wgroups) * K.WGROUP - margin, 0,
                                 wp_rows - slab_rows)
+            K.mark_in_range(sband, 0, n_inc)  # key_of_block < n_inc * n_wgroups
+            K.mark_in_range(srow0, 0, wp_rows - slab_rows + 1)
             vmask = (perm2 >= 0).reshape(-1, K.SLAB_BLOCK).any(dim=1)
 
         with span("xs.refine"):
@@ -514,8 +524,9 @@ def _make_fused_invert_fn(tables, device, coarse=True):
                 # the tail runs only when the axes differ)
                 wspd_co_m = torch.where(torch.isnan(s0_co_db), nan, wspd_co_raw)
                 has_co = (~torch.isnan(wspd_co_m)).to(f32)
-                perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc),
+                perm3, band3 = bucket_by_band(nearest_index_sorted(cr_grid, inc, form=cr_form),
                                               cr_grid.shape[0], K.CR_BLOCK)
+                K.mark_in_range(band3, 0, cr_grid.shape[0])
                 pix3 = torch.stack([s0_cr_db.to(f32), dsig_cr.to(f32),
                                     torch.where(has_co > 0, wspd_co_m, 0.0) * 0.5, has_co], dim=1)
                 wspd_dual = K.crosspol_argmin(*cr_ops, pix3, band3, block=K.CR_BLOCK, index=perm3)
@@ -788,7 +799,8 @@ def _invert_source(tables, source, dsig_co=0.1, chunk_size=256, mode="auto", dev
         source = copy.copy(source)
         source.device_db = mode in _FUSED_MODES and dtype == torch.float32
     fn = _get_invert_fn(tables, chunk_size, mode, device)
-    dsig_t = torch.tensor(dsig_co, dtype=dtype, device=device)
+    # filled on the device: a host-to-device copy would wait for it
+    dsig_t = torch.full((), float(dsig_co), dtype=dtype, device=device)
     n = source.n
     bounds = _pieces(n, piece_size or (1 << 22))
     count("pieces", len(bounds))
