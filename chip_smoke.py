@@ -7,7 +7,8 @@ it finishes; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of the kernels from ``xsarsea_tpu_torch/ops/csrc``: the main
-   path's library (K1-K4, ``dual_merge``), then the experiment kernels' (K5,
+   path's library (K1-K4, ``dual_merge``, the bucketings' ``f32_sort_key``
+   and ``sort_pairs``), then the experiment kernels' (K5,
    K6, the hoisted quotient's test entries);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    on the high-resolution LUTs and a 64 Kpx bucketed subsample of the scene;
@@ -22,23 +23,30 @@ it finishes; any failure exits non-zero:
    its windows and an edge set with the crosspol LUT's own differences;
 4. the main path: dual-pol ``invert_from_model`` with models
    (gmf_cmod5n, gmf_s1_v2) on a 2**23-pixel seed-0 scene forward-modelled
-   with the port's GMFs, checking that both kernels were launched and the
-   dual-pol merge kernel ``dual_merge`` once a piece, plus the speed RMS
-   against the true wind over the first 2**20 pixels;
+   with the port's GMFs, checking that both kernels were launched, the
+   dual-pol merge kernel ``dual_merge`` and the incidence key's
+   ``f32_sort_key`` once a piece and the narrow sort ``sort_pairs`` twice a
+   piece, plus the speed RMS against the true wind over the first 2**20
+   pixels;
 5. ``invert_pixels`` on device-resident float32 inputs, median of 3 timed
    runs after a warm-up; then, on the arguments the main path gave each
    kernel (one 2**22-pixel piece), the kernel against its plain version bit
    for bit, and the time of each; ``dual_merge`` likewise on the main path's
    last piece (phase 4), beside the two ``torch.complex`` calls it replaced;
+   and ``f32_sort_key`` and ``sort_pairs`` at each of its key widths (32
+   and 14 bits) on the arguments of that piece's bucketings, beside the
+   int64 ``torch.sort`` that each sort replaced;
 6. fused against exact, both on the card, on the first 2**16 pixels;
 7. the unfused tail: LUT-file models ``gmf_cmod7`` (the KNMI fixture,
    high-res 501 x 499 x 181) and ``sarwing_lut__fix_cr_2_1`` (the sarwing
    crosspol fixture, 67 x 155 on its own incidence axis), registered from
    ``tests/data``; dual-pol ``invert_from_model`` on the same scene (crosspol
    sigma0 interpolated from the crosspol LUT) must launch K1, K3 and K4 and
-   not K2; then the device-resident rate, K3 and K4 against their plain
-   versions on a 64 Kpx subsample and on one 2**22-pixel piece's arguments,
-   with their times, and fused against exact on the first 2**16 pixels;
+   not K2, and sort three times a piece; then the device-resident rate, K3
+   and K4 against their plain versions on a 64 Kpx subsample and on one
+   2**22-pixel piece's arguments, with their times, ``sort_pairs`` likewise
+   at the crosspol bands' 7 bits, and fused against exact on the first
+   2**16 pixels;
 8. the experiment drivers of ``xsarsea_tpu_torch/scripts``: the slab
    sweep's three cost forms (K5) on a 2**23-pixel scene bucketed by the
    port's stage 1, on both loops (the shared sweep K2 and K3 run, and the
@@ -167,7 +175,11 @@ for the path's real pixels, over 67 TFLOP/s FP32, or 989 TFLOP/s for K6's
 bf16 products; NVIDIA's H100 SXM data sheet at 700 W). A tensor-core K6
 entry adds its flips against its plain version, the K its product needs
 and the K it issues, and the bound at the issued K. No single PyTorch call computes any of these
-functions (each is an argmin over a cost), so ``library_ms`` is null. The
+functions (each is an argmin over a cost), so ``library_ms`` is null; a
+``sort_pairs:<bits>_bits`` entry's ``library_ms`` is the int64
+``torch.sort`` it replaced, and its bound the bytes of its radix passes (16
+B a pixel each pass of 8 bits, key and payload read and written, and 4 B
+for the histogram's read: 68, 36 and 20 B a pixel at 32, 14 and 7 bits). The
 streamed K1's ``bound_ms`` is that of the cells it swept (its own count);
 its entry adds the full grid's bound, its time without pruning, the
 fractions of chunks and cells swept, and its times on the adversarial,
@@ -354,6 +366,83 @@ def hold_merge(torch, K, args, entry, phase):
         f"path's last piece ({took} dual-pol winds equal the copol wind); kernel {entry['ms']:.4f} ms, plain "
         f"{entry['plain_ms']:.3f} ms, the two torch.complex calls it replaces {pack_ms:.4f} ms, "
         f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+
+
+SORT_KERNELS = ("f32_sort_key", "sort_pairs")  # the bucketings' kernels
+SORT_ENTRY = {"route": "cuda", "source": "xsarsea_tpu_torch/ops/csrc/bucket_sort.cu",
+              "replaces": "none: the JAX package's lax.sort, xsarsea_tpu/ops/"
+                          "pallas_inversion.py:254 (bucket_by_band), :344 (bucket_by_value)",
+              "max_abs_err": 0.0, "library_ms": None}
+
+
+@contextlib.contextmanager
+def captured_sorts(K):
+    """Record the last arguments of ``f32_sort_key``, and of ``sort_pairs``
+    at each key width, under their ``kernels`` entries (``f32_sort_key``,
+    ``sort_pairs:<end_bit>_bits``), with the calls of each entry counted."""
+    calls, counts = {}, Counter()
+    key_fn, sort_fn = K.f32_sort_key, K.sort_pairs
+
+    def key(v):
+        calls["f32_sort_key"] = (v,)
+        counts["f32_sort_key"] += 1
+        return key_fn(v)
+
+    def sort(keys, end_bit, values=None):
+        entry = f"sort_pairs:{end_bit}_bits"
+        calls[entry] = (keys, end_bit, values)
+        counts[entry] += 1
+        return sort_fn(keys, end_bit, values)
+
+    K.f32_sort_key, K.sort_pairs = key, sort
+    try:
+        yield calls, counts
+    finally:
+        K.f32_sort_key, K.sort_pairs = key_fn, sort_fn
+
+
+def hold_sorts(torch, K, captured, report, phase):
+    """Each captured ``f32_sort_key`` and ``sort_pairs`` call against its
+    plain version on the same arguments, bit for bit; exit unless equal.
+    An entry new to ``report`` adds its launches, its time, its plain
+    version's, the int64 ``torch.sort`` a sort replaced (``library_ms``)
+    and its bound (bytes); one already there adds its launches."""
+    from xsarsea_tpu_torch.scripts import cuda_ms
+
+    calls, counts = captured
+    for entry, args in sorted(calls.items()):
+        n = args[0].numel()
+        if entry == "f32_sort_key":
+            kernel, plain = (lambda: K.f32_sort_key(*args)), (lambda: K._f32_sort_key_plain(*args))
+        else:
+            kernel = lambda: K.sort_pairs(*args)  # noqa: E731
+            plain = lambda: K._sort_pairs_plain(args[0], args[2])  # noqa: E731
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        for g, r in zip(*((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))):
+            if g.shape != r.shape or not torch.equal(g, r):
+                bad = int((g != r).sum()) if g.shape == r.shape else "all"
+                raise SystemExit(f"{phase}: {entry} differs from its plain version on {bad} "
+                                 f"of {n} outputs")
+        if entry in report:
+            report[entry]["launches"] += counts[entry]
+            continue
+        report[entry] = row = {"name": entry, **SORT_ENTRY, "launches": counts[entry]}
+        row["ms"] = cuda_ms(kernel, 20)
+        row["plain_ms"] = cuda_ms(plain, 3)
+        if entry == "f32_sort_key":
+            row["bound_ms"], row["bound_by"] = bound(0, nbytes(torch, args[0], got))
+            note = ""
+        else:
+            passes = -(-args[1] // 8)
+            row["library_ms"] = cuda_ms(
+                lambda: torch.sort(args[0].to(torch.int64), stable=True), 3)
+            row["bound_ms"], row["bound_by"] = bound(0, n * (16 * passes + 4))
+            note = (f", the int64 torch.sort it replaced {row['library_ms']:.4f} ms "
+                    f"({'with' if args[2] is not None else 'without'} a payload given)")
+        log(f"{phase} {entry}: bit-equal to its plain version on {n} keys of the path's last "
+            f"piece, {counts[entry]} launches; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms{note}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
 def feats_of(name, args):
@@ -621,7 +710,7 @@ def unfused_pair(sc, tmp):
 
 def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
     """The unfused tail: CMOD7 (KNMI fixture) with the sarwing crosspol LUT."""
-    from xsarsea_tpu_torch.windspeed.inversion import invert_from_model, invert_pixels
+    from xsarsea_tpu_torch.windspeed.inversion import _pieces, invert_from_model, invert_pixels
 
     t0 = time.perf_counter()
     models = UNFUSED_MODELS
@@ -638,12 +727,19 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
     # the main path through the unfused tail, with launch counts
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    wind_co, wind_dual = invert_from_model(
-        sc["inc"], sc["s0_co"], s0_cr, ancillary_wind=sc["anc"], dsig_co=0.1, dsig_cr=0.1,
-        model=models, device="cuda")
-    torch.cuda.synchronize()
+    with captured_sorts(K) as sort_calls:
+        wind_co, wind_dual = invert_from_model(
+            sc["inc"], sc["s0_co"], s0_cr, ancillary_wind=sc["anc"], dsig_co=0.1, dsig_cr=0.1,
+            model=models, device="cuda")
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = K.launch_counts()
+    pieces = len(_pieces(n, 1 << 22))
+    sorts_of = {"f32_sort_key": pieces, "sort_pairs": 3 * pieces}
+    if any(launches.get(name, 0) != count for name, count in sorts_of.items()) \
+            or "sort_pairs:7_bits" not in sort_calls[0]:
+        raise SystemExit(f"phase 7: the bucketings launched {launches} at widths "
+                         f"{sorted(sort_calls[0])}, not {sorts_of} with a 7-bit crosspol sort")
     for name in ("group_argmin", "slab_refine", "crosspol_argmin"):
         if launches[name] == 0:
             raise SystemExit(f"phase 7: kernel {name} was not launched by the unfused tail")
@@ -684,6 +780,7 @@ def phase7(torch, K, sc, n, n_sub, n_rms, reps, report, tmp):
             f"{timed['ms']:.3f} ms, plain {timed['plain_ms']:.3f} ms per call, bound "
             f"{timed['bound_ms']:.3f} ms ({timed['bound_by']})"
             f"{sweep_note(torch, K, name, args, kwargs)}")
+    hold_sorts(torch, K, sort_calls, report, "phase 7")
 
     fused_vs_exact(torch, tables, sc, dev_inputs, n_sub, "phase 7")
     return tables, s0_cr_db
@@ -1573,7 +1670,8 @@ def prune_on_card(torch, K, bench_call, tables, report, seed):
 def exact_path_launches(torch, K, tables, dev, expect, phase):
     """The fused_exact mode through ``invert_pixels`` on device-resident
     inputs, with every count set to 0 just before and read just after:
-    exits unless exactly the kernels ``expect`` were launched, K2 and K3 on
+    exits unless exactly the kernels ``expect`` and the bucketings' were
+    launched, K2 and K3 on
     32-row slabs. Returns (launches, the arguments each kernel was given)."""
     from xsarsea_tpu_torch.windspeed.inversion import invert_pixels
 
@@ -1582,7 +1680,7 @@ def exact_path_launches(torch, K, tables, dev, expect, phase):
         invert_pixels(tables, *dev, mode="fused_exact", device="cuda", device_output=True)
         torch.cuda.synchronize()
     launches = K.launch_counts()
-    if {k for k, v in launches.items() if v} != set(expect):
+    if {k for k, v in launches.items() if v} != {*expect, *SORT_KERNELS}:
         raise SystemExit(f"{phase}: fused_exact launched {launches}, expected {expect}")
     for name in ("slab_refine_fused", "slab_refine"):
         if name in calls and calls[name][1].get("n_rows") != EXACT_ROWS:
@@ -2129,7 +2227,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
             dsig_cr=0.1, model=models, device="cuda")
 
     K.reset_launch_counts()
-    with captured_calls(K, ("dual_merge",)) as merge_calls:
+    with captured_calls(K, ("dual_merge",)) as merge_calls, captured_sorts(K) as sort_calls:
         (wind_co, wind_dual), seconds = host_seconds(torch, main_path)
     launches = K.launch_counts()
     (wind_co, wind_dual), seconds_again = host_seconds(torch, main_path)
@@ -2144,6 +2242,9 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
         raise SystemExit(f"phase 4: dual_merge launched {launches.get('dual_merge', 0)} times "
                          f"by the main path, not once for each of its {pieces} pieces")
     report["dual_merge"]["launches"] = launches["dual_merge"]
+    sorts_of = {"f32_sort_key": pieces, "sort_pairs": 2 * pieces}
+    if any(launches.get(name, 0) != count for name, count in sorts_of.items()):
+        raise SystemExit(f"phase 4: the bucketings launched {launches}, not {sorts_of}")
     if launches["slab_refine"] or launches["crosspol_argmin"]:
         raise SystemExit("phase 4: the fused tail launched a kernel of the unfused tail")
     for name, w in (("wind_co", wind_co), ("wind_dual", wind_dual)):
@@ -2179,6 +2280,7 @@ def run(n=1 << 23, n_sub=1 << 16, n_rms=1 << 20, reps=3, through=13, seed=0):
             f"bound {report[name]['bound_ms']:.3f} ms ({report[name]['bound_by']})"
             f"{sweep_note(torch, K, name, args, kwargs)}")
     hold_merge(torch, K, merge_calls["dual_merge"][0], report["dual_merge"], "phase 5")
+    hold_sorts(torch, K, sort_calls, report, "phase 5")
     done("phase 5")
 
     # phase 6: fused against exact on the card

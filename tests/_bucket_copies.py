@@ -17,7 +17,12 @@ Imports no JAX.
 * :func:`masked_assembly`: the bucket assembly as it was before it became
   free of host waits, with six boolean-mask selections (each a read back of
   a mask's size); :func:`masked_bucketing` puts it in place of the
-  bucketing's own for a test's duration.
+  bucketing's own for a test's duration;
+* :func:`int64_bucket_by_value`, :func:`int64_bucket_by_band`,
+  :func:`int64_bucket_by_band_sorted`: the bucketings as they were before
+  their sorts became narrow, ``torch.sort`` of keys widened to int64 (the
+  float key by :func:`int64_sort_key`'s chain) with int64 indices, assembled
+  by :func:`masked_assembly`.
 """
 
 import numpy as np
@@ -190,6 +195,7 @@ def masked_assembly(lb_ext, order, n, n_bands, block):
     starts past the last block) are selected out instead of sent to a spare
     slot."""
     dev = order.device
+    order = order.to(torch.int64)
     lb = lb_ext[:-1]
     counts = torch.diff(lb_ext)
     pad_counts = ((counts + block - 1) // block) * block
@@ -221,3 +227,77 @@ def masked_bucketing(monkeypatch):
     """The bucketing assembles with :func:`masked_assembly` until
     ``monkeypatch`` undoes it."""
     monkeypatch.setattr(B, "_assemble_buckets", masked_assembly)
+
+
+def int64_sort_key(v):
+    """The unsigned 32-bit key of float32 ``v`` held as int64, by the chain
+    of int64 elementwise ops the bucketing used (``_f32_sort_key_np``'s)."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(bits >> 31 == 1, (~bits) & 0xFFFFFFFF, bits | 0x80000000)
+    key = torch.where(torch.isinf(v), torch.zeros_like(key), key)
+    return torch.where(torch.isnan(v), torch.full_like(key, 0xFFFFFFFF), key)
+
+
+def int64_bucket_by_band(band, n_bands, block, values=None):
+    n = band.shape[0]
+    ks, order = torch.sort(band.to(torch.int64), stable=True)
+    if values is not None:
+        order = values.to(torch.int64)[order]
+    lb_ext = torch.searchsorted(ks, torch.arange(n_bands + 1, device=band.device))
+    return masked_assembly(lb_ext, order, n, n_bands, block)
+
+
+def int64_bucket_by_band_sorted(band, within, n_bands, block):
+    n = band.shape[0]
+    key = band.to(torch.int64) * 2 ** 32 + int64_sort_key(within.to(torch.float32))
+    ks, order = torch.sort(key, stable=True)
+    starts = torch.arange(n_bands + 1, device=band.device) * 2 ** 32
+    return masked_assembly(torch.searchsorted(ks, starts), order, n, n_bands, block)
+
+
+def int64_bucket_by_value(values_f32, boundary_keys, n_bands, block):
+    n = values_f32.shape[0]
+    ks, order = torch.sort(int64_sort_key(values_f32), stable=True)
+    dev = values_f32.device
+    lb_ext = torch.cat([
+        torch.zeros(1, dtype=torch.int64, device=dev),
+        torch.searchsorted(ks, boundary_keys.to(dev).to(torch.int64) + 2 ** 31),
+        torch.full((1,), n, dtype=torch.int64, device=dev),
+    ])
+    return masked_assembly(lb_ext, order, n, n_bands, block)
+
+
+def outside_band_case(kind, n, n_bands, seed):
+    """``(band, as_sentinel, n_bands, block)``: int64 bands, about a third
+    of them outside ``[0, n_bands)`` (``kind`` "above": from ``n_bands`` to
+    2**31 - 1, most past the key bits ``n_bands`` needs; "negative": down
+    to -2**31), and the same bands with those set to the sentinel
+    ``n_bands``."""
+    rng = np.random.default_rng(seed)
+    band = rng.integers(0, n_bands, n)
+    out = rng.random(n) < 0.3
+    far = {"above": [n_bands, n_bands + 1, 2 * n_bands + 3, 2 ** 20 + 5, 2 ** 31 - 1],
+           "negative": [-1, -2, -n_bands, -2 ** 20 - 5, -2 ** 31]}[kind]
+    band[out] = rng.choice(far, int(out.sum()))
+    return band, np.where(out, n_bands, band), n_bands, 64
+
+
+def bucket_route(module, route, band, n_bands, block, seed, reference=False, device="cpu"):
+    """Bucket int64 ``band`` by ``route`` ("by_band", with a payload;
+    "by_band_iota", without; "by_band_sorted", with a float32 key within
+    each band, NaN and ties among it) through ``module``'s bucketing: the
+    port's (``bucketing``) or, with ``reference``, this module's int64
+    sorts."""
+    rng = np.random.default_rng(seed)
+    n = band.shape[0]
+    prefix = "int64_" if reference else ""
+    band = torch.as_tensor(band, device=device)
+    if route == "by_band":
+        payload = torch.as_tensor(rng.permutation(n) + 3, device=device)
+        return getattr(module, prefix + "bucket_by_band")(band, n_bands, block, payload)
+    if route == "by_band_iota":
+        return getattr(module, prefix + "bucket_by_band")(band, n_bands, block)
+    within = rng.integers(0, 50, n).astype(np.float32)
+    within[::7] = np.nan
+    return getattr(module, prefix + "bucket_by_band_sorted")(
+        band, torch.as_tensor(within, device=device), n_bands, block)

@@ -73,17 +73,67 @@ def test_band_boundaries_and_sort_keys_match_jax(grid):
     ref = jpi.band_boundaries_f32(grid)
     np.testing.assert_array_equal(got, ref)
     keys = B._f32_sort_key_np(got)
-    assert keys.dtype == np.int64
-    np.testing.assert_array_equal(keys, jpi._f32_sort_key_np(ref).astype(np.int64))
+    assert keys.dtype == np.int32  # the reference's unsigned key less 2**31
+    np.testing.assert_array_equal(keys.astype(np.int64),
+                                  jpi._f32_sort_key_np(ref).astype(np.int64) - 2 ** 31)
     assert B.band_boundaries_f32(grid[::-1]) is None
+
+
+_I32 = np.iinfo(np.int32)
 
 
 def test_sort_key_tensor_matches_numpy_and_is_monotone():
     v = np.array([-np.inf, -3.5, -0.0, 0.0, 1e-30, 2.5, 7.0, np.inf, np.nan], np.float32)
     got = B.f32_sort_key(torch.as_tensor(v)).numpy()
+    assert got.dtype == np.int32
     np.testing.assert_array_equal(got, B._f32_sort_key_np(v))
-    assert got[0] == 0 and got[7] == 0 and got[8] == 0xFFFFFFFF
-    assert (np.diff(got[1:7]) >= 0).all()
+    assert got[0] == got[7] == _I32.min and got[8] == _I32.max
+    assert (np.diff(got[1:7]) > 0).all()
+
+
+def _bits(u):
+    return np.asarray(u, np.uint64).astype(np.uint32).view(np.float32)
+
+
+_TINY = np.finfo(np.float32).tiny
+_MAX = np.finfo(np.float32).max
+# value sets for the 32-bit key: the special values, the denormals (both
+# signs, the whole range in steps), random bit patterns (NaN payloads of
+# both signs among them) and ladders of adjacent floats
+_KEY_SETS = {
+    "specials": np.array([-np.inf, -_MAX, -1.0, -_TINY, -_bits(1)[()], -0.0, 0.0, _bits(1)[()],
+                          _TINY, 1.0, _MAX, np.inf, np.nan, -np.nan], np.float32),
+    "denormals": np.concatenate([_bits(np.arange(0, 2 ** 23, 4099)),
+                                 -_bits(np.arange(0, 2 ** 23, 4099)), _bits([2 ** 23 - 1])]),
+    "random_bits": _bits(np.random.default_rng(5).integers(0, 2 ** 32, 200_000)),
+    "ladders": np.concatenate([_bits(np.arange(b - 300, b + 300)) for b in
+                               (0x00800000, 0x3F800000, 0x7F7FFF00, 0x80000000 + 300,
+                                0x80800000, 0xBF800000)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_KEY_SETS))
+def test_f32_sort_key_holds_the_unsigned_key_order(name):
+    """The 32-bit key is ``_f32_sort_key_np``'s, the reference's unsigned key
+    less 2**31, so torch's order of it is the unsigned key's: monotone in
+    the value, -0 below +0, +-inf first, NaN last."""
+    v = _KEY_SETS[name]
+    key = B.f32_sort_key(torch.as_tensor(v)).numpy()
+    assert key.dtype == np.int32
+    np.testing.assert_array_equal(key, B._f32_sort_key_np(v))
+    unsigned = jpi._f32_sort_key_np(v).astype(np.int64)
+    np.testing.assert_array_equal(key.astype(np.int64), unsigned - 2 ** 31)
+    assert (key[np.isinf(v)] == _I32.min).all() and (key[np.isnan(v)] == _I32.max).all()
+    finite = np.isfinite(v)
+    fk, fv = key[finite], v[finite]
+    assert (fk > _I32.min).all() and (fk < _I32.max).all()
+    by_key = np.argsort(fk, kind="stable")
+    assert (np.diff(fv[by_key]) >= 0).all()  # monotone in the value
+    # equal values under distinct keys are -0 and +0 alone, -0 first
+    same = np.diff(fv[by_key]) == 0
+    steps = np.diff(fk[by_key]) > 0
+    assert (fv[by_key][1:][same & steps] == 0).all()
+    assert (np.signbit(fv[by_key][:-1][same & steps])).all()
 
 
 def _check_buckets(perm, band_of_block, band, block, n):
@@ -177,12 +227,23 @@ def test_nan_incidence_same_outputs_through_both_bucketing_routes(monkeypatch):
 # through the three bucketings, bit for bit
 _CASES = ("empty_middle", "empty_trailing", "sentinels", "all_sentinels", "n_below_block",
           "single_band", "empty")
+# band counts at the edges of a key width (the narrow sort covers the bit
+# length of n_bands), and heavy ties
+_WIDTH_CASES = ("n_bands_1", "n_bands_2k_minus_1", "n_bands_2k", "n_bands_2k_plus_1",
+                "heavy_ties")
 
 
 def _band_case(case):
     """``(band, n_bands, block)`` of a case; a band of ``n_bands`` is a
     sentinel."""
     rng = np.random.default_rng(len(case))
+    if case == "n_bands_1":
+        return rng.integers(0, 2, 600), 1, 64
+    if case.startswith("n_bands_2k"):
+        n_bands = {"n_bands_2k_minus_1": 127, "n_bands_2k": 128, "n_bands_2k_plus_1": 129}[case]
+        return rng.integers(0, n_bands + 1, 3000), n_bands, 32
+    if case == "heavy_ties":
+        return rng.choice([0, 1, 2, 511, 1000], 5000), 1000, 64
     if case == "empty_middle":
         return rng.choice([0, 1, 2, 5, 6, 8, 9], 1000), 10, 64
     if case == "empty_trailing":
@@ -198,24 +259,39 @@ def _band_case(case):
     return np.zeros(0, np.int64), 4, 64
 
 
-def _bucket(route, band, n_bands, block):
+# route -> the bucketing it runs ("by_band" with a payload, "by_band_iota"
+# without)
+_ROUTES = {"by_value": "bucket_by_value", "by_band": "bucket_by_band",
+           "by_band_iota": "bucket_by_band", "by_band_sorted": "bucket_by_band_sorted"}
+
+
+def _bucket(route, case, reference=False):
+    """A case's bucketing by ``route``: the port's, or (``reference``) the
+    int64 sort's it replaced."""
+    import _bucket_copies
+
+    fn = getattr(_bucket_copies, "int64_" + _ROUTES[route]) if reference \
+        else getattr(B, _ROUTES[route])
+    band, n_bands, block = _band_case(case)
     rng = np.random.default_rng(7)
     n = band.shape[0]
     if route == "by_band":
-        return B.bucket_by_band(torch.as_tensor(band), n_bands, block,
-                                values=torch.as_tensor(rng.permutation(n) + 3))
+        return fn(torch.as_tensor(band), n_bands, block, torch.as_tensor(rng.permutation(n) + 3))
+    if route == "by_band_iota":
+        return fn(torch.as_tensor(band), n_bands, block)
     if route == "by_band_sorted":
         within = rng.integers(0, 50, n).astype(np.float32)  # ties within a band
         within[::7] = np.nan
-        return B.bucket_by_band_sorted(torch.as_tensor(band), torch.as_tensor(within), n_bands,
-                                       block)
-    # band b's values lie nearest b on the grid 0, 1, ..., n_bands - 1; a
-    # sentinel's value is NaN, which sorts into the last band
-    vals = (band + rng.uniform(-0.3, 0.3, n)).astype(np.float32)
+        return fn(torch.as_tensor(band), torch.as_tensor(within), n_bands, block)
+    # band b's values lie nearest b on the grid 0, 1, ..., n_bands - 1 (on
+    # it, with heavy ties); a sentinel's value is NaN, which sorts into the
+    # last band
+    jitter = 0.0 if case == "heavy_ties" else rng.uniform(-0.3, 0.3, n)
+    vals = (band + jitter).astype(np.float32)
     vals[band >= n_bands] = np.nan
     bounds = B.band_boundaries_f32(np.arange(n_bands, dtype=np.float32))
-    keys = np.zeros(0, np.int64) if bounds is None else B._f32_sort_key_np(bounds)
-    return B.bucket_by_value(torch.as_tensor(vals), torch.as_tensor(keys), n_bands, block)
+    keys = np.zeros(0, np.int32) if bounds is None else B._f32_sort_key_np(bounds)
+    return fn(torch.as_tensor(vals), torch.as_tensor(keys), n_bands, block)
 
 
 @pytest.mark.parametrize("route", ["by_value", "by_band", "by_band_sorted"])
@@ -224,12 +300,83 @@ def test_sync_free_assembly_equals_the_masked_one(case, route, monkeypatch):
     from _bucket_copies import masked_bucketing
 
     band, n_bands, block = _band_case(case)
-    perm, bob = _bucket(route, band, n_bands, block)
+    perm, bob = _bucket(route, case)
     with monkeypatch.context() as m:
         masked_bucketing(m)
-        ref_perm, ref_bob = _bucket(route, band, n_bands, block)
+        ref_perm, ref_bob = _bucket(route, case)
     assert perm.dtype == ref_perm.dtype == torch.int64 and perm.is_contiguous()
     assert torch.equal(perm, ref_perm)
     assert bob.dtype == ref_bob.dtype and torch.equal(bob, ref_bob)
     assert bob.shape[0] == perm.shape[0] // block
     assert 0 <= int(bob.min()) and int(bob.max()) < n_bands
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+@pytest.mark.parametrize("case", _CASES + _WIDTH_CASES)
+def test_narrow_sort_equals_the_int64_sort(case, route):
+    """Each bucketing's narrow sort (32-bit keys and payload, over the bits
+    the keys hold) gives ``perm`` and ``band_of_block`` bit-identical to the
+    stable int64 sort it replaced, and counts its sorts and key bits."""
+    from xsarsea_tpu_torch.utils import spans
+
+    n_bands = _band_case(case)[1]
+    before = spans.counters()
+    perm, bob = _bucket(route, case)
+    after = spans.counters()
+    ref_perm, ref_bob = _bucket(route, case, reference=True)
+    assert perm.dtype == ref_perm.dtype == torch.int64 and torch.equal(perm, ref_perm)
+    assert bob.dtype == ref_bob.dtype and torch.equal(bob, ref_bob)
+    bits = {"by_value": 32, "by_band_sorted": 32 + n_bands.bit_length()}.get(
+        route, n_bands.bit_length())
+    assert after["narrow_sorts"] - before["narrow_sorts"] == 1 + (route == "by_band_sorted")
+    assert after["sort_bits"] - before["sort_bits"] == bits
+
+
+@pytest.mark.parametrize("route", ["by_band", "by_band_iota", "by_band_sorted"])
+@pytest.mark.parametrize("outside", ["above", "negative"])
+def test_a_band_outside_the_range_is_a_sentinel(outside, route):
+    """A band outside ``[0, n_bands)``, far past the key bits ``n_bands``
+    needs or below 0, is dropped as the sentinel ``n_bands`` is: the
+    bucketing equals the int64 sort's of the bands with those set to
+    ``n_bands``."""
+    import _bucket_copies as C
+
+    band, as_sentinel, n_bands, block = C.outside_band_case(outside, 4000, 100, seed=11)
+    got = C.bucket_route(B, route, band, n_bands, block, seed=12)
+    ref = C.bucket_route(C, route, as_sentinel, n_bands, block, seed=12, reference=True)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert int((got[0] >= 0).sum()) == int((as_sentinel < n_bands).sum())
+
+
+@pytest.mark.parametrize("cross_axis", ["shared", "own"])
+def test_a_piece_sorts_over_its_keys_bits(cross_axis):
+    """A fused-tail piece sorts twice, the incidence key's 32 bits and the
+    re-bucketing's bit length of n_inc * n_wgroups; an unfused one also the
+    crosspol bands' bit length."""
+    from xsarsea_tpu_torch.utils import spans
+
+    kw = dict(inc_step=1.0, wspd_step=0.5, phi_step=5.0)
+    cr_kw = kw if cross_axis == "shared" else {**kw, "inc_step": 1.5}
+    tables = InversionTables(get_model("gmf_cmod5n").to_lut(units="dB", **kw),
+                             get_model("gmf_s1_v2").to_lut(units="dB", **cr_kw),
+                             dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    n = 300
+    inc = rng.uniform(20.0, 45.0, n)
+    s0 = rng.uniform(-25.0, -5.0, n)
+    anc = rng.uniform(3.0, 15.0, n) * np.exp(1j * rng.uniform(-np.pi, np.pi, n))
+    before = spans.counters()
+    invert_pixels(tables, inc, 10 ** (s0 / 10), 10 ** ((s0 - 12) / 10), np.full(n, 0.3), anc,
+                  mode="fused", device="cpu")
+    after = spans.counters()
+    pieces = after["pieces"] - before["pieces"]
+    n_wgroups = -(-len(tables.co_wspd) // 16)
+    bits = 32 + (len(tables.co_inc) * n_wgroups).bit_length()
+    sorts = 2
+    if cross_axis == "own":
+        bits += len(tables.cr_inc).bit_length()
+        sorts = 3
+    assert pieces >= 1
+    assert after["narrow_sorts"] - before["narrow_sorts"] == sorts * pieces
+    assert after["sort_bits"] - before["sort_bits"] == bits * pieces

@@ -1387,6 +1387,11 @@ def test_fused_call_reads_through_the_permutation_on_card(cuda, cell, tmp_path, 
     monkeypatch.undo()
     rec, = tr.calls
     assert rec["perm_rows_read"] == sum(slots) > placed["inc"].numel()
+    # the narrow sorts a piece: the incidence key's 32 bits and the
+    # re-bucketing's 14 (501 incidences x 32 wind-speed groups), and in the
+    # unfused tail the crosspol bands' 7 (67 incidences)
+    sorts, bits = {"s1_iw_resident": (2, 46), "lut_scansar_resident": (3, 53)}[cell]
+    assert rec["narrow_sorts"] == sorts * rec["pieces"] and rec["sort_bits"] == bits * rec["pieces"]
     with monkeypatch.context() as m:
         copying_kernels(m)
         ref_co, ref_dual = resident.invert(program, placed)
@@ -1432,9 +1437,108 @@ def test_resident_pieces_enqueue_with_no_host_wait_on_card(cuda, cross_axis, mon
     assert after["pieces"] - before["pieces"] == 2
     assert after["range_checks"] == before["range_checks"]
     assert after["range_checks_waived"] - before["range_checks_waived"] == 2 * launches
+    # a piece's narrow sorts: one a bucketing, over the bits its keys hold
+    bits = 32 + (len(tables.co_inc) * -(-len(tables.co_wspd) // K.WGROUP)).bit_length()
+    if cross_axis == "own":
+        bits += len(tables.cr_inc).bit_length()
+    assert after["narrow_sorts"] - before["narrow_sorts"] == 2 * launches
+    assert after["sort_bits"] - before["sort_bits"] == 2 * bits
     with monkeypatch.context() as m:
         masked_bucketing(m)
         ref_co, ref_dual = call()
     for got, ref in ((co, ref_co), (dual, ref_dual)):
         assert _same_bits(got.cpu().numpy(), ref.cpu().numpy())
     assert torch.isfinite(co).float().mean() > 0.99
+
+
+def test_narrow_sort_equals_the_int64_sort_on_card(cuda):
+    """The narrow radix sort at every key width from 1 to 32 bits equals
+    ``torch.sort(stable=True)`` of the keys widened to int64, keys and
+    payload (given, or the keys' indices) bit for bit, on 2^22 + 1 keys with
+    heavy ties (and on a few small sizes); at 32 bits the keys span int32,
+    signs included."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    for n in (0, 1, 255, (1 << 22) + 1):
+        for end_bit in range(1, 33) if n > 255 else (1, 7, 14, 32):
+            lo, hi = (-2 ** 31, 2 ** 31) if end_bit == 32 else (0, 2 ** end_bit)
+            keys = torch.randint(lo, hi, (n,), generator=gen, device=cuda).to(torch.int32)
+            keys[::3] = keys[:1].clone()  # heavy ties
+            if end_bit == 32 and n > 4:
+                keys[1:5] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0], device=cuda)
+            values = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+            ref_ks, order = torch.sort(keys.to(torch.int64), stable=True)
+            for payload, ref in ((values, values[order]), (None, order.to(torch.int32))):
+                ks, vs = K.sort_pairs(keys, end_bit, payload)
+                assert ks.dtype == vs.dtype == torch.int32, (n, end_bit)
+                assert torch.equal(ks.to(torch.int64), ref_ks), (n, end_bit)
+                assert torch.equal(vs, ref), (n, end_bit, payload is None)
+
+
+def test_f32_sort_key_kernel_equals_its_plain_version_on_every_float(cuda):
+    """The ``f32_sort_key`` kernel against its plain version on all 2^32
+    float32 bit patterns (NaN payloads of both signs, denormals, +-0,
+    +-inf), 2^28 at a time."""
+    step = 1 << 28
+    for start in range(-2 ** 31, 2 ** 31, step):
+        bits = torch.arange(start, start + step, dtype=torch.int64, device=cuda).to(torch.int32)
+        v = bits.view(torch.float32)
+        assert torch.equal(K.f32_sort_key(v), K._f32_sort_key_plain(v)), start
+
+
+@pytest.mark.parametrize("route", ["by_value", "by_band", "by_band_iota", "by_band_sorted"])
+def test_bucketings_equal_the_int64_sort_on_card(cuda, route):
+    """Each bucketing on 2^22 + 57 pixels at the cells' key widths (the
+    501-incidence grid's 32-bit key, the re-bucketing's 16,032 bands with
+    sentinels and its payload, a 67-band crosspol axis) gives ``perm`` and
+    ``band_of_block`` bit-identical to the stable int64 sort it replaced."""
+    import _bucket_copies as C
+    from xsarsea_tpu_torch.ops import bucketing as B
+
+    rng = np.random.default_rng(26)
+    n = (1 << 22) + 57
+    dev = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    if route == "by_value":
+        grid = np.linspace(17.0, 67.0, 501).astype(np.float32)
+        vals = rng.uniform(15.0, 70.0, n).astype(np.float32)
+        vals[::97] = np.nan
+        vals[5::1001] = vals[5]  # ties
+        vals[7], vals[9] = np.inf, -np.inf
+        args = (dev(vals), dev(B._f32_sort_key_np(B.band_boundaries_f32(grid))), 501, 256)
+    elif route == "by_band":
+        n_bands = 501 * 32
+        band = rng.integers(0, n_bands + 1, n)  # n_bands: a sentinel
+        band[::5] = n_bands
+        args = (dev(band), n_bands, 128, dev(rng.permutation(n)))
+    elif route == "by_band_iota":
+        args = (dev(rng.integers(0, 67, n).astype(np.int32)), 67, 256)
+    else:
+        within = rng.uniform(0, 30, n).astype(np.float32)
+        within[::13] = np.nan
+        within[::7] = within[1]
+        args = (dev(rng.integers(0, 502, n)), dev(within), 501, 256)
+    name = {"by_value": "bucket_by_value", "by_band_sorted": "bucket_by_band_sorted"}.get(
+        route, "bucket_by_band")
+    perm, bob = getattr(B, name)(*args)
+    ref_perm, ref_bob = getattr(C, "int64_" + name)(*args)
+    assert perm.dtype == ref_perm.dtype == torch.int64 and torch.equal(perm, ref_perm)
+    assert bob.dtype == ref_bob.dtype and torch.equal(bob, ref_bob)
+
+
+@pytest.mark.parametrize("route", ["by_band", "by_band_iota", "by_band_sorted"])
+@pytest.mark.parametrize("outside", ["above", "negative"])
+def test_a_band_outside_the_range_is_a_sentinel_on_card(cuda, outside, route):
+    """On the card, where the narrow sort reads only the key bits that
+    ``n_bands`` needs, a band outside ``[0, n_bands)`` (above those bits or
+    below 0) is dropped as the sentinel ``n_bands`` is, bit-identical to the
+    int64 sort of the bands with those set to ``n_bands``, at 2^22 + 57
+    pixels and the re-bucketing's 16,032 bands."""
+    import _bucket_copies as C
+    from xsarsea_tpu_torch.ops import bucketing as B
+
+    band, as_sentinel, n_bands, block = C.outside_band_case(outside, (1 << 22) + 57, 501 * 32,
+                                                            seed=26)
+    got = C.bucket_route(B, route, band, n_bands, block, seed=27, device=cuda)
+    ref = C.bucket_route(C, route, as_sentinel, n_bands, block, seed=27, reference=True,
+                         device=cuda)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)

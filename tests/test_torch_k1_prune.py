@@ -271,7 +271,7 @@ def test_sorted_bucketing():
     assert torch.equal(torch.sort(perm[valid]).values, torch.sort(ref_perm[ref_perm >= 0]).values)
     slot_band = bob.repeat_interleave(block)
     assert torch.equal(band[perm[valid]], slot_band[valid])  # single-band blocks
-    keys = f32_sort_key(within)
+    keys = f32_sort_key(within).to(torch.int64)  # a difference of two int32 keys overflows
     for b in range(n_bands):
         k = keys[perm[valid & (slot_band == b)]]
         assert (torch.diff(k) >= 0).all()  # ascending within the band, NaN last

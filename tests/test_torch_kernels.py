@@ -306,7 +306,8 @@ def test_kernel_build_dir_in_checkout_or_user_cache(tmp_path, monkeypatch):
 
 
 def test_main_and_experiment_libraries_split_the_sources():
-    """The main path's library is built from K1-K4's and the merge's sources,
+    """The main path's library is built from K1-K4's, the merge's and the
+    bucketings' sort's sources,
     the experiment library from the others: the two tuples are disjoint and
     cover every ``csrc/*.cu``; each library's entry points are the
     ``extern "C"`` functions of its own sources; the main module names none
@@ -319,7 +320,7 @@ def test_main_and_experiment_libraries_split_the_sources():
 
     main, experiments = set(K._SOURCES), set(E._SOURCES)
     assert main == {"group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
-                    "crosspol_argmin.cu", "dual_merge.cu"}
+                    "crosspol_argmin.cu", "dual_merge.cu", "bucket_sort.cu"}
     assert main.isdisjoint(experiments)
     assert main | experiments == {p.name for p in K._CSRC.glob("*.cu")}
 

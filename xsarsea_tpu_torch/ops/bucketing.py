@@ -3,17 +3,24 @@
 Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:61-380``. The fused
 kernels take pixels in fixed-size blocks whose pixels share one incidence
 band (and, for the slab refine, one wind-speed group), so each block reads
-one LUT slice. Bucketing is sort + searchsorted + one scatter, as torch ops
-on the pixels' device.
+one LUT slice. Bucketing is sort + searchsorted + one scatter on the
+pixels' device: the sort is the main path's narrow radix sort
+(:func:`~xsarsea_tpu_torch.ops.inversion_kernels.sort_pairs`), 32-bit keys
+with a 32-bit payload over only the bits the keys hold, the rest torch ops.
 
-Keys that the reference carries as ``uint32`` ride in ``int64`` here
-(torch's unsigned support is partial); the order is the same.
+The float key that the reference carries as ``uint32`` rides in ``int32``
+here less 2**31 (:func:`_f32_sort_key_np`, :func:`f32_sort_key`; torch's
+unsigned support is partial): torch's signed order of it is the unsigned
+key's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from xsarsea_tpu_torch.ops import inversion_kernels as K
+from xsarsea_tpu_torch.ops.inversion_kernels import GROUP_BLOCK, f32_sort_key
 
 __all__ = [
     "DEFAULT_BLOCK",
@@ -30,7 +37,7 @@ __all__ = [
     "sorted_grid_form",
 ]
 
-DEFAULT_BLOCK = 256  # pixels per stage-1 block (one incidence band each)
+DEFAULT_BLOCK = GROUP_BLOCK  # pixels per stage-1 block (one incidence band each)
 
 
 def _scalar(x, like):
@@ -169,25 +176,28 @@ def band_boundaries_f32(grid_np):
 
 
 def _f32_sort_key_np(v):
-    """Monotone f32 -> unsigned 32-bit key (numpy; returned as int64).
+    """Monotone f32 -> 32-bit key (numpy, int32): the reference's unsigned
+    key less 2**31, so that its signed order is the unsigned key's; the
+    numpy twin of :func:`f32_sort_key`.
 
-    Positive floats are bit-ordered; negatives flip. +-inf -> 0 (band 0:
-    every |g[k] - inf| is inf, the first minimum is 0); NaN -> max key
-    (last band; NaN-guarded downstream).
+    Positive floats are bit-ordered; negatives flip. +-inf -> the least key
+    (band 0: every |g[k] - inf| is inf, the first minimum is 0); NaN -> the
+    largest (last band; NaN-guarded downstream).
     """
     v = np.asarray(v, np.float32)
     bits = v.view(np.uint32)
     key = np.where(bits >> 31 == 1, ~bits, bits | np.uint32(0x80000000))
     key = np.where(np.isinf(v), np.uint32(0), key)
-    return np.where(np.isnan(v), np.uint32(0xFFFFFFFF), key).astype(np.int64)
+    key = np.where(np.isnan(v), np.uint32(0xFFFFFFFF), key)
+    return (key ^ np.uint32(0x80000000)).view(np.int32)
 
 
-def f32_sort_key(v):
-    """Tensor twin of :func:`_f32_sort_key_np` (f32 in, int64 keys out)."""
-    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    key = torch.where(bits >> 31 == 1, (~bits) & 0xFFFFFFFF, bits | 0x80000000)
-    key = torch.where(torch.isinf(v), torch.zeros_like(key), key)
-    return torch.where(torch.isnan(v), torch.full_like(key, 0xFFFFFFFF), key)
+def _band_key(band, n_bands):
+    """The int32 sort key of integer bands, and the key bits that hold it:
+    a band outside ``[0, n_bands)`` becomes the sentinel ``n_bands`` (clamped
+    into ``[-1, n_bands]``, where -1 wraps round to ``n_bands``)."""
+    key = torch.remainder(torch.clamp(band, -1, n_bands), n_bands + 1).to(torch.int32)
+    return key, max(1, int(n_bands).bit_length())
 
 
 def bucket_by_band(band, n_bands, block=DEFAULT_BLOCK, values=None):
@@ -195,36 +205,40 @@ def bucket_by_band(band, n_bands, block=DEFAULT_BLOCK, values=None):
 
     Returns ``(perm, band_of_block)``: ``perm`` (int64, length
     ``(ceil(N/block) + n_bands) * block``, -1 marks padding) lists the
-    ``values`` payload (default: pixel index) band by band, each band padded
-    to a multiple of ``block``; ``band_of_block[b]`` is block b's band.
-    Entries with ``band >= n_bands`` are sentinels: they sort past every
-    real band and are dropped.
+    ``values`` payload (default: pixel index; values fit int32) band by
+    band, each band padded to a multiple of ``block``; ``band_of_block[b]``
+    is block b's band. Entries with a band outside ``[0, n_bands)`` are
+    sentinels: they sort past every real band and are dropped. The sort
+    covers the bit length of ``n_bands``.
     """
     n = band.shape[0]
-    ks, order = torch.sort(band.to(torch.int64), stable=True)
-    if values is not None:
-        order = values.to(torch.int64)[order]
+    dev = band.device
+    key, bits = _band_key(band, n_bands)
+    ks, order = K.sort_pairs(key, bits, None if values is None else values.to(torch.int32))
     # lb_ext[b] = first sorted slot of band b; the extra entry is the first
     # sentinel slot (= n without sentinels)
-    lb_ext = torch.searchsorted(ks, torch.arange(n_bands + 1, device=band.device))
+    lb_ext = torch.searchsorted(ks, torch.arange(n_bands + 1, dtype=torch.int32, device=dev))
     return _assemble_buckets(lb_ext, order, n, n_bands, block)
 
 
 def bucket_by_band_sorted(band, within, n_bands, block=DEFAULT_BLOCK):
     """:func:`bucket_by_band` with each band's pixels in ascending order of
-    ``within`` (float32; NaN last, equal values in pixel order): one stable
-    sort of the 64-bit key (band, :func:`f32_sort_key` of ``within``)."""
+    ``within`` (float32; NaN last, equal values in pixel order): the stable
+    sort of the key (band, :func:`f32_sort_key` of ``within``) as two
+    stable sorts, the within key's 32 bits, then the band's bits."""
     n = band.shape[0]
-    key = band.to(torch.int64) * 2 ** 32 + f32_sort_key(within.to(torch.float32))
-    ks, order = torch.sort(key, stable=True)
-    starts = torch.arange(n_bands + 1, device=band.device) * 2 ** 32
-    return _assemble_buckets(torch.searchsorted(ks, starts), order, n, n_bands, block)
+    dev = band.device
+    key, bits = _band_key(band, n_bands)
+    _, by_within = K.sort_pairs(K.f32_sort_key(within.to(torch.float32)), 32)
+    ks, order = K.sort_pairs(key[by_within], bits, by_within)
+    lb_ext = torch.searchsorted(ks, torch.arange(n_bands + 1, dtype=torch.int32, device=dev))
+    return _assemble_buckets(lb_ext, order, n, n_bands, block)
 
 
 def band_of_value(values_f32, boundary_keys):
     """Per pixel, the band :func:`bucket_by_value` puts it in: the count of
     boundary keys at or below its value's key (NaN: the last band)."""
-    return torch.searchsorted(boundary_keys.to(values_f32.device), f32_sort_key(values_f32),
+    return torch.searchsorted(boundary_keys.to(values_f32.device), K.f32_sort_key(values_f32),
                               right=True)
 
 
@@ -232,17 +246,18 @@ def bucket_by_value(values_f32, boundary_keys, n_bands, block=DEFAULT_BLOCK):
     """Group pixels into nearest-grid-index buckets without a per-pixel
     nearest pass: the lookup fuses into the bucket sort.
 
-    Pixels sort by the monotone key of their f32 value; per-band segment
-    bounds come from ``searchsorted`` of the precomputed boundary keys
-    (:func:`band_boundaries_f32` through the same key transform). Band
-    assignment equals :func:`nearest_index_sorted` for every non-NaN value.
-    NaN values sort to the LAST band (where :func:`bucket_by_band` over
-    ``nearest_index_sorted`` puts them in band 0); their outputs are NaN
+    Pixels sort by the 32-bit monotone key of their f32 value
+    (:func:`f32_sort_key`); per-band segment bounds come from
+    ``searchsorted`` of the precomputed boundary keys
+    (:func:`band_boundaries_f32` through :func:`_f32_sort_key_np`, int32).
+    Band assignment equals :func:`nearest_index_sorted` for every non-NaN
+    value. NaN values sort to the LAST band (where :func:`bucket_by_band`
+    over ``nearest_index_sorted`` puts them in band 0); their outputs are NaN
     either way (the postprocess guards).
     """
     n = values_f32.shape[0]
-    ks, order = torch.sort(f32_sort_key(values_f32), stable=True)
     dev = values_f32.device
+    ks, order = K.sort_pairs(K.f32_sort_key(values_f32), 32)
     lb_ext = torch.cat([
         torch.zeros(1, dtype=torch.int64, device=dev),
         torch.searchsorted(ks, boundary_keys.to(dev)),
@@ -252,9 +267,9 @@ def bucket_by_value(values_f32, boundary_keys, n_bands, block=DEFAULT_BLOCK):
 
 
 def _assemble_buckets(lb_ext, order, n, n_bands, block):
-    """Bucket assembly from per-band segment bounds: counts -> padded
-    offsets -> destination slots (telescoped sparse add + cumsum) -> one
-    scatter.
+    """Bucket assembly from per-band segment bounds and the sorted payload
+    ``order`` (int32): counts -> padded offsets -> destination slots
+    (telescoped sparse add + cumsum) -> one scatter.
 
     Every size comes from ``n``, ``n_bands`` and ``block``, and no value is
     read back: what a mask would drop goes to one spare trailing slot, cut
@@ -275,7 +290,7 @@ def _assemble_buckets(lb_ext, order, n, n_bands, block):
     n_padded = ((n + block - 1) // block + n_bands) * block
     keep = torch.arange(n, device=dev) < lb_ext[-1]  # sentinels go to the spare slot
     perm = torch.full((n_padded + 1,), -1, dtype=torch.int64, device=dev)
-    perm = perm.scatter_(0, torch.where(keep, dest, n_padded), order)[:n_padded]
+    perm = perm.scatter_(0, torch.where(keep, dest, n_padded), order.to(torch.int64))[:n_padded]
 
     n_blocks = n_padded // block
     # a band's first block: below n_blocks (the padded bands fill fewer

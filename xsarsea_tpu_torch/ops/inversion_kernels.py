@@ -35,6 +35,11 @@ Counterpart of ``xsarsea_tpu/ops/pallas_inversion.py:382-1106``.
   (``xsarsea_tpu/windspeed/inversion.py:1652-1659``), run on each piece's
   float32 winds before their copy out, in the pass that packs them into
   complex64.
+* :func:`sort_pairs` and :func:`f32_sort_key` replace no ``pallas_call``:
+  the bucketings' stable radix sort of 32-bit keys with a 32-bit payload
+  over only the bits the keys hold (cub's, in the main path's library), and
+  the 32-bit order-preserving key of a float32 value it sorts
+  (``csrc/bucket_sort.cu``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel (the main
 path's library: ``csrc/`` sources of :data:`_SOURCES`, built with nvcc for
@@ -80,7 +85,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from xsarsea_tpu_torch.ops.bucketing import DEFAULT_BLOCK as GROUP_BLOCK
 from xsarsea_tpu_torch.utils import spans
 
 __all__ = [
@@ -105,6 +109,7 @@ __all__ = [
     "chunk_lower_bounds",
     "crosspol_argmin",
     "dual_merge",
+    "f32_sort_key",
     "group_argmin",
     "group_argmin_streamed",
     "k1_staged_fits",
@@ -114,8 +119,10 @@ __all__ = [
     "slab_refine",
     "slab_refine_fused",
     "slab_smem_bytes",
+    "sort_pairs",
 ]
 
+GROUP_BLOCK = 256  # pixels per K1 block (one incidence band each)
 WGROUP = 16  # wspd rows per group: K1's output unit, K2's bucketing unit
 SLAB_MARGIN = 16  # refine window half-width in wspd rows around the group
 SLAB_ROWS = WGROUP + 2 * SLAB_MARGIN  # 48 rows: [16g-16, 16g+32)
@@ -138,10 +145,10 @@ _PLAIN_ELEMENTS = 1 << 27  # costs a plain version materializes at once
 MERGE_BELOW = 5.0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-# the main path's library: K1-K4 and the dual-pol merge (the experiment
-# kernels' sources are ops/experiment_kernels.py's)
+# the main path's library: K1-K4, the dual-pol merge and the bucketings'
+# sort (the experiment kernels' sources are ops/experiment_kernels.py's)
 _SOURCES = ("group_argmin.cu", "slab_refine_fused.cu", "slab_refine.cu",
-            "crosspol_argmin.cu", "dual_merge.cu")
+            "crosspol_argmin.cu", "dual_merge.cu", "bucket_sort.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                "--threads", "0")  # the sources compile side by side
@@ -653,6 +660,18 @@ def _dual_merge_plain(co_re, co_im, du_re, du_im):
             torch.complex(torch.where(take_co, co_re, du_re), torch.where(take_co, co_im, du_im)))
 
 
+def _f32_sort_key_plain(v):
+    bits = v.contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    key = torch.where(torch.isinf(v), torch.iinfo(torch.int32).min, key)
+    return torch.where(torch.isnan(v), torch.iinfo(torch.int32).max, key)
+
+
+def _sort_pairs_plain(keys, values):
+    ks, order = torch.sort(keys, stable=True)
+    return ks, order.to(torch.int32) if values is None else values[order]
+
+
 # ---------------------------------------------------------- build and bind
 
 _lib_lock = threading.Lock()
@@ -732,6 +751,9 @@ _ENTRIES = {
     "xs_crosspol_argmin": [_p] * 4 + [_i] + [_p] * 2 + [_i] * 3 + [_p],
     "xs_chunk_lower_bounds": [_p] * 3 + [_i] * 2 + [_p],
     "xs_dual_merge": [_p] * 6 + [_ll, _p],
+    "xs_f32_sort_key": [_p, _p, _ll, _p],
+    "xs_radix_sort_temp_bytes": [_ll, _i, _p],
+    "xs_radix_sort_pairs": [_p, ctypes.c_ulonglong] + [_p] * 4 + [_ll, _i, _p],
 }
 
 
@@ -1171,6 +1193,74 @@ def dual_merge(co_re, co_im, du_re, du_im):
     return wind_co, wind_dual
 
 
+def f32_sort_key(v):
+    """The 32-bit order-preserving key of float32 ``v``, int32 of its shape:
+    ``bucketing._f32_sort_key_np``'s, the JAX package's unsigned key less
+    2**31, so that torch's (signed) order of it is that key's. Negatives
+    flip, -0 sorts below +0, +-inf gives the least key and NaN the largest.
+    On a CUDA tensor the ``f32_sort_key`` kernel writes it
+    (csrc/bucket_sort.cu), counted as ``launch/f32_sort_key``; on a CPU
+    tensor its plain version."""
+    if v.dtype != torch.float32:
+        raise ValueError(f"f32_sort_key: need float32 values, got {v.dtype}")
+    if v.device.type == "cpu":
+        return _f32_sort_key_plain(v)
+    if v.device.type != "cuda":
+        raise ValueError(f"f32_sort_key: unsupported device {v.device}")
+    bits = v.contiguous().view(torch.int32)
+    key = torch.empty_like(bits)
+    lib = _load()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.xs_f32_sort_key(bits.data_ptr(), key.data_ptr(), bits.numel(), stream)
+    _check(lib, rc, "f32_sort_key")
+    _count("f32_sort_key")
+    return key
+
+
+def sort_pairs(keys, end_bit, values=None):
+    """Stable sort of int32 ``keys`` (n,) over their bits ``[0, end_bit)``,
+    with an int32 payload carried: ``values`` (n,), or each key's index
+    where it is None. Returns ``(sorted keys, payload in key order)``. At
+    ``end_bit`` 32 the keys compare as int32; below it they must lie in
+    ``[0, 2**end_bit)``, where that order is theirs. Equal keys keep their
+    order, so the result is ``torch.sort(keys, stable=True)``'s with the
+    payload gathered by its indices. On a CUDA tensor cub's radix sort runs
+    (csrc/bucket_sort.cu) in ``ceil(end_bit / 8)`` passes, its temporary
+    storage taken from torch's allocator, on the current stream, with no
+    host wait, counted as ``launch/sort_pairs``; on a CPU tensor
+    ``torch.sort``. Counts the sort (``narrow_sorts``) and its key bits
+    (``sort_bits``) on either."""
+    if not 1 <= end_bit <= 32:
+        raise ValueError(f"sort_pairs: end_bit must lie in [1, 32], got {end_bit}")
+    spans.count("narrow_sorts")
+    spans.count("sort_bits", end_bit)
+    if keys.device.type == "cpu":
+        return _sort_pairs_plain(keys, values)
+    if keys.device.type != "cuda":
+        raise ValueError(f"sort_pairs: unsupported device {keys.device}")
+    n = keys.shape[0]
+    named = {"keys": keys} if values is None else {"keys": keys, "values": values}
+    _cuda_args(keys.device, {name: (t, torch.int32, (n,)) for name, t in named.items()})
+    ks, vs = torch.empty_like(keys), torch.empty_like(keys)
+    if n == 0:
+        return ks, vs
+    lib = _load()
+    temp_bytes = ctypes.c_ulonglong()
+    _check(lib, lib.xs_radix_sort_temp_bytes(n, end_bit, ctypes.byref(temp_bytes)), "sort_pairs")
+    temp = torch.empty(temp_bytes.value, dtype=torch.uint8, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if values is None:
+            values = torch.arange(n, dtype=torch.int32, device=keys.device)
+        rc = lib.xs_radix_sort_pairs(temp.data_ptr(), temp_bytes.value, keys.data_ptr(),
+                                     ks.data_ptr(), values.data_ptr(), vs.data_ptr(), n,
+                                     end_bit, stream)
+    _check(lib, rc, "sort_pairs")
+    _count("sort_pairs")
+    return ks, vs
+
+
 def _group_argmin_streamed_plain(lut_c, u_half, v_half, row_group, feats, band_of_block,
                                  n_groups, block=GROUP_BLOCK, radii=None, swept=None,
                                  _prune=True, chunk_blocks=16, *, index):
@@ -1200,7 +1290,8 @@ def reset_launch_counts():
 def launch_counts():
     """Kernel launches per wrapper since the last reset (plain-version
     calls on the CPU do not count); K2/K3 at a chunk height other than 8
-    under ``<name>:chunk_rows=<rows>`` and ``dual_merge``, which is not one
-    of :data:`KERNELS` (the argmin kernels), present once launched. The counters
+    under ``<name>:chunk_rows=<rows>``; ``dual_merge``, ``f32_sort_key``
+    and ``sort_pairs``, which are not among :data:`KERNELS` (the argmin
+    kernels), present once launched. The counters
     are the port's ``launch/<name>`` (:mod:`xsarsea_tpu_torch.utils.spans`)."""
     return {**dict.fromkeys(KERNELS, 0), **spans.counters(_LAUNCH)}

@@ -16,7 +16,9 @@
   permutation (``perm_rows_read``), the launches whose range guards read
   their indices back, one host wait each (``range_checks``), the launches
   whose indices their maker, the fused closure, marked in range, launched
-  with no wait (``range_checks_waived``), and the kernel launches of each
+  with no wait (``range_checks_waived``), the bucketings' sorts launched
+  through the narrow radix sort (``narrow_sorts``) and the key bits they
+  sorted, summed (``sort_bits``), and the kernel launches of each
   wrapper (``launch/<wrapper>`` for the inversion's kernels,
   ``launch.experiment/<kernel>`` for the experiment kernels).
 * :class:`call` is the ``xs.call`` span of one entry-point call. While
@@ -67,7 +69,8 @@ _NULL = contextlib.nullcontext()
 _lock = threading.Lock()
 _counters = dict.fromkeys(("pieces", "read_bytes", "h2d_bytes", "d2h_bytes", "pinned_new_bytes",
                            "builds", "merge_px_card", "merge_px_host", "perm_rows_read",
-                           "range_checks", "range_checks_waived"), 0)
+                           "range_checks", "range_checks_waived", "narrow_sorts",
+                           "sort_bits"), 0)
 # set by utils.trace: its profiler follows every thread, where the
 # profiler-enabled check reads false even on the thread that started it
 _all_threads = False

@@ -332,10 +332,11 @@ def _make_exact_fn(tables, chunk_size, device):
 
 def _rebucket_slot(perm, gstar, band_of_block, *, n_inc, n_wgroups, block, slab_block):
     """Re-bucket stage-1 slots by (band, wspd group), carrying the stage-1
-    permutation as payload (no scatter back to pixel order first)."""
+    permutation as payload (no scatter back to pixel order first). The key is
+    int32, below ``n_inc * n_wgroups + 1``: the sort covers its bit length."""
     valid = perm >= 0
-    band_slot = band_of_block[:, None].expand(band_of_block.shape[0], block).reshape(-1)
-    key_slot = torch.where(valid, band_slot * n_wgroups + gstar.to(torch.int64),
+    band_slot = band_of_block.to(torch.int32)[:, None].expand(-1, block).reshape(-1)
+    key_slot = torch.where(valid, band_slot * n_wgroups + gstar.to(torch.int32),
                            n_inc * n_wgroups)
     return bucket_by_band(key_slot, n_bands=n_inc * n_wgroups, block=slab_block, values=perm)
 
