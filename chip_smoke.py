@@ -77,7 +77,9 @@ it finishes; any failure exits non-zero:
    DataArray-like class defined here, which must launch K1 and K2, return
    that class with ``("line", "sample")`` dims and ``model``/``comment``
    attrs, give NaN copol and finite dual-pol wind over land and a dual-pol
-   speed within 1.0 m/s RMS of the true wind; then ``nesz_flattening``,
+   speed within 1.0 m/s RMS of the true wind; the same inversion in one
+   call from the raw NESZ (``dsig_cr="gmf_s1_v2", nesz_cr=``), whose merged
+   winds and launches must equal the three calls'; then ``nesz_flattening``,
    ``get_dsig`` and ``sigma0_detrend`` on the card against ``device="cpu"``
    in float64 on a 256-line strip (rtol 1e-9, 1e-12 and 1e-11), the float32
    line fit's deviation from float64, and ``sigma0_detrend`` on a chunked
@@ -1127,19 +1129,32 @@ def prepare_scene(torch, ds, seconds):
     return dict(anc=anc, nesz_flat=nesz_flat, dsig_cr=dsig_cr, detrended=detrended)
 
 
+def labelled(arr):
+    return LabelledArray(arr.data, coords=arr.coords, dims=arr.dims, name=arr.name,
+                         attrs=arr.attrs)
+
+
 def invert_labelled(ds, prep):
     """Phase 9, step 2: dual-pol ``invert_from_model`` on DataArray-like
     inputs, the per-pixel ``dsig_cr`` array among them."""
     from xsarsea_tpu_torch.windspeed import invert_from_model
 
-    def labelled(arr):
-        return LabelledArray(arr.data, coords=arr.coords, dims=arr.dims, name=arr.name,
-                             attrs=arr.attrs)
-
     return invert_from_model(
         labelled(ds["inc"]), labelled(ds["nrcs"]), labelled(ds["nrcs_cr"]),
         ancillary_wind=labelled(prep["anc"]), dsig_cr=labelled(prep["dsig_cr"]),
         model=PREP_MODELS, device="cuda")
+
+
+def invert_from_nesz(ds, prep):
+    """Phase 9, step 2 in one call: the raw NESZ and the dsig scheme in place
+    of the flattened NESZ's ``dsig_cr`` array (``nesz_flattening`` and
+    ``get_dsig`` inside ``invert_from_model``)."""
+    from xsarsea_tpu_torch.windspeed import invert_from_model
+
+    return invert_from_model(
+        labelled(ds["inc"]), labelled(ds["nrcs"]), labelled(ds["nrcs_cr"]),
+        ancillary_wind=labelled(prep["anc"]), dsig_cr=PREP_MODELS[1],
+        nesz_cr=labelled(ds["nesz_cr"]), model=PREP_MODELS, device="cuda")
 
 
 def max_rel_dev(got, ref):
@@ -1211,6 +1226,22 @@ def phase9(torch, K, report, card, seed, ny=2048, nx=4096, strip=256):
             or not np.isfinite(prep["detrended"].values[sea]).all() \
             or not np.isfinite(prep["nesz_flat"].values).all():
         raise SystemExit("phase 9: detrended sigma0 or flattened NESZ has wrong NaNs or attrs")
+
+    # step 2 in one call: the same merged winds, bit for bit, from the raw NESZ
+    three = sum(seconds[k] for k in ("nesz_flattening", "get_dsig", "invert_from_model"))
+    K.reset_launch_counts()
+    (one_co, one_dual), one_s = host_seconds(torch, lambda: invert_from_nesz(ds, prep))
+    one_launches = K.launch_counts()
+    for name, got, want in (("wind_co", one_co, wind_co), ("wind_dual", one_dual, wind_dual)):
+        if not same_bits(got.values, want.values):
+            raise SystemExit(f"phase 9: {name} of the one call from the raw NESZ differs from "
+                             "the three calls'")
+    if one_launches != launches:
+        raise SystemExit(f"phase 9: the one call launched {one_launches}, the three calls' "
+                         f"inversion {launches}")
+    log(f"phase 9 invert_from_model in one call from the raw NESZ (dsig_cr="
+        f"'{PREP_MODELS[1]}', nesz_cr=): merged winds bit-equal to the three calls', the same "
+        f"launches; {one_s:.4f} s against the three calls' {three:.4f} s")
 
     # step 3: card against device="cpu" in float64 on a strip; the float32 line
     # fit; a chunked sigma0

@@ -18,7 +18,12 @@
   whose indices their maker, the fused closure, marked in range, launched
   with no wait (``range_checks_waived``), the bucketings' sorts launched
   through the narrow radix sort (``narrow_sorts``) and the key bits they
-  sorted, summed (``sort_bits``), and the kernel launches of each
+  sorted, summed (``sort_bits``), the rows of the NESZ fits of
+  ``invert_from_model`` called with a dsig scheme and the raw NESZ
+  (``nesz_rows``), those of them left without a line, no finite sample after
+  the NaN fill (``nesz_rows_nan``), and the pixels weighted from the NESZ
+  (``dsig_px``), none of which a call with a ``dsig_cr`` array or scalar
+  counts, and the kernel launches of each
   wrapper (``launch/<wrapper>`` for the inversion's kernels,
   ``launch.experiment/<kernel>`` for the experiment kernels).
 * :class:`call` is the ``xs.call`` span of one entry-point call. While
@@ -41,6 +46,12 @@ The spans, nested as they run (the fused stages inside ``xs.compute``):
                    taken (``_flat_slice``: the rows of a chunked or broadcast
                    array materialized), before any cast; a memory-mapped
                    file's view is read in the cast that follows
+``xs.nesz``        once a call of ``invert_from_model`` with a dsig scheme and
+                   the raw NESZ, before the pieces: the scene's NESZ and
+                   incidence to the device, the column means and every row's
+                   line fitted there
+``xs.dsig``        inside ``xs.prep`` of such a call: the piece's flattened
+                   NESZ and ``dsig_cr`` made on the device
 ``xs.compute``     one piece's inversion: ``xs.bucket``, ``xs.coarse`` (K1),
                    ``xs.rebucket``, ``xs.refine`` (K2, or K3 and K4),
                    ``xs.post`` in the fused modes

@@ -3,7 +3,10 @@
 
 ``get_dsig`` / ``get_dsig_wspd`` are elementwise formulas; ``nesz_flattening``
 replaces the reference's per-row ``np.polyfit`` loop (utils.py:138-163) with
-a closed-form weighted line fit over all rows at once.
+a closed-form weighted line fit over all rows at once, in two steps that
+``invert_from_model`` also runs when it weights the crosspol channel from its
+raw NESZ: :func:`nesz_row_fit` (the column means and every row's line, once a
+scene) and :func:`nesz_expand` (the lines over any flat range of the scene).
 
 Each takes a ``device`` keyword (default ``"cuda"``): numpy inputs are
 copied there, computed and copied back as numpy; a tensor input is computed
@@ -22,7 +25,8 @@ from xsarsea_tpu_torch.dimarray import DimArray
 from xsarsea_tpu_torch.interop import xarray_io
 from xsarsea_tpu_torch.utils import as_tensor, compute_device, to_host
 
-__all__ = ["get_dsig", "get_dsig_wspd", "nesz_flattening"]
+__all__ = ["get_dsig", "get_dsig_wspd", "nesz_flattening", "nesz_row_fit", "nesz_expand",
+           "DSIG_NAMES"]
 
 # sigmoid-blend constants tuned per satellite (reference utils.py:26-42)
 _DSIG_WSPD_PARAMS = {
@@ -71,52 +75,90 @@ def get_dsig_wspd(name, U_crosspol, SNR_cr, Umax=30.0, device="cuda"):
     return _wrap_like(U_crosspol, torch.clip(alpha_core * drop, 0.0, 1.0))
 
 
-@xarray_io
-def get_dsig(name, inc, sigma0_cr, nesz_cr, device="cuda"):
-    """Named dsig_cr weighting for the crosspol cost term (utils.py:47-91)."""
-    if name not in ("gmf_s1_v2", "gmf_rs2_v2", "sarwing_lut_cmodms1ahw", "nc_lut_cmodms1ahw"):
+DSIG_NAMES = ("gmf_s1_v2", "gmf_rs2_v2", "sarwing_lut_cmodms1ahw", "nc_lut_cmodms1ahw")
+
+
+def check_dsig_name(name):
+    """Raise for a dsig scheme that :func:`get_dsig` does not know."""
+    if name not in DSIG_NAMES:
         raise ValueError(
             "dsig names other than 'gmf_s1_v2', 'gmf_rs2_v2', "
             "'sarwing_lut_cmodms1ahw' or 'nc_lut_cmodms1ahw' are not handled. "
             "You can compute your own dsig_cr.")
-    inc_d, s0, nesz = _tensors(device, _data(inc), _data(sigma0_cr), _data(nesz_cr))
+
+
+def dsig_formula(name, inc, sigma0_cr, nesz_cr):
+    """The named scheme's ``dsig_cr`` on tensors (utils.py:47-91), in their
+    dtype; ``name`` is one of :data:`DSIG_NAMES`."""
     if name == "gmf_s1_v2":
         c0, c1, d0, d1 = 1.57952257, 25.61843791, 1.46852088, 1.4058646
-        c = d0 + d1 / (1.0 + torch.exp(-c0 * (inc_d - c1)))
-        out = 1.0 / torch.sqrt((s0 / nesz) ** c)
-    elif name == "gmf_rs2_v2":
-        out = 1.0 / torch.sqrt((s0 / nesz) ** 8.0)
-    else:
-        out = (1.25 / (s0 / nesz)) ** 4.0
-    return _wrap_like(sigma0_cr, out)
+        c = d0 + d1 / (1.0 + torch.exp(-c0 * (inc - c1)))
+        return 1.0 / torch.sqrt((sigma0_cr / nesz_cr) ** c)
+    if name == "gmf_rs2_v2":
+        return 1.0 / torch.sqrt((sigma0_cr / nesz_cr) ** 8.0)
+    return (1.25 / (sigma0_cr / nesz_cr)) ** 4.0
 
 
-def _flatten_rows(noise, inc_1d, col_mean):
-    """Order-1 fit of noise_dB against incidence for every row at once.
+@xarray_io
+def get_dsig(name, inc, sigma0_cr, nesz_cr, device="cuda"):
+    """Named dsig_cr weighting for the crosspol cost term (utils.py:47-91)."""
+    check_dsig_name(name)
+    inc_d, s0, nesz = _tensors(device, _data(inc), _data(sigma0_cr), _data(nesz_cr))
+    return _wrap_like(sigma0_cr, dsig_formula(name, inc_d, s0, nesz))
+
+
+def _row_fit(noise, inc_1d, col_mean):
+    """Order-1 fit of noise_dB against incidence for every row at once:
+    ``(slope, intercept)``, each of shape (line,).
 
     Equivalent to the reference per-row np.polyfit (utils.py:138-160):
     NaNs are first replaced by the column mean, then the samples that are
-    still not finite are excluded from the fit by zero weights (closed-form
-    weighted least squares on a line, the sums taken along each row).
+    still not finite are excluded from the fit by zero weights (weighted least
+    squares on a line, the sums taken along each row about the row's weighted
+    means, so that no difference of large sums cancels). A row without a
+    finite sample, or with one, gets NaN, like the reference's TypeError path.
     """
     filled = torch.where(torch.isnan(noise), col_mean, noise)
     noise_db = 10.0 * torch.log10(filled)
-    w = torch.isfinite(noise_db).to(noise_db.dtype)
+    w = torch.isfinite(noise_db)
     zero = noise_db.new_zeros(())
-    y = torch.where(w > 0, noise_db, zero)
-    x = torch.where(w > 0, inc_1d, zero)
-    sw = w.sum(1, keepdim=True)
-    sx = x.sum(1, keepdim=True)
-    sy = y.sum(1, keepdim=True)
-    sxx = (x * x).sum(1, keepdim=True)
-    sxy = (x * y).sum(1, keepdim=True)
-    denom = sw * sxx - sx * sx
-    slope = (sw * sxy - sx * sy) / denom
-    intercept = (sy - slope * sx) / sw
-    flat = 10.0 ** ((inc_1d * slope + intercept - 1.0) / 10.0)
-    # a row without a finite sample (sw == 0) -> NaN row, like the
-    # reference's TypeError path
-    return torch.where(sw > 0, flat, flat.new_full((), float("nan")))
+    sw = w.sum(1).to(noise_db.dtype)
+    x_mean = torch.where(w, inc_1d, zero).sum(1) / sw
+    y_mean = torch.where(w, noise_db, zero).sum(1) / sw
+    dx = torch.where(w, inc_1d - x_mean[:, None], zero)
+    dy = torch.where(w, noise_db - y_mean[:, None], zero)
+    slope = (dx * dy).sum(1) / (dx * dx).sum(1)
+    return slope, y_mean - slope * x_mean
+
+
+def _line(slope, intercept, inc):
+    """A fitted line in dB, 1 dB down, back to linear (utils.py:160)."""
+    return 10.0 ** ((inc * slope + intercept - 1.0) / 10.0)
+
+
+def _flatten_rows(noise, inc_1d, col_mean):
+    """The flattened NESZ of every row: :func:`_row_fit`, then its lines."""
+    slope, intercept = _row_fit(noise, inc_1d, col_mean)
+    return _line(slope[:, None], intercept[:, None], inc_1d)
+
+
+def nesz_row_fit(noise, inc_1d):
+    """The scene-wide step of the flattening: ``noise`` (line, sample) linear
+    NESZ, ``inc_1d`` (sample,) the incidence's column means, both tensors on
+    one device. Returns each row's ``(slope, intercept)`` in dB against
+    incidence (:func:`_row_fit`), computed in the inputs' dtype."""
+    return _row_fit(noise, inc_1d, torch.nanmean(noise, dim=0))
+
+
+def nesz_expand(slope, intercept, inc_1d, lo, hi):
+    """The flattened NESZ over the flat row-major range ``[lo, hi)`` of the
+    (line, sample) scene whose rows :func:`nesz_row_fit` fitted: each pixel's
+    row line at its column's incidence, element for element the values
+    :func:`nesz_flattening` gives there."""
+    idx = torch.arange(lo, hi, device=slope.device)
+    row = torch.div(idx, inc_1d.shape[0], rounding_mode="floor")
+    col = idx - row * inc_1d.shape[0]
+    return _line(slope[row], intercept[row], inc_1d[col])
 
 
 @xarray_io

@@ -70,6 +70,8 @@ from xsarsea_tpu_torch.ops.bucketing import (
 )
 from xsarsea_tpu_torch.utils import logger, staging, timing
 from xsarsea_tpu_torch.utils.spans import call, count, span
+from xsarsea_tpu_torch.windspeed.dsig import (check_dsig_name, dsig_formula, nesz_expand,
+                                              nesz_row_fit)
 
 __all__ = ["invert_from_model", "invert_pixels", "InversionTables", "prepare_tables"]
 
@@ -617,13 +619,51 @@ class _PreparedSource:
         return [staging.to_device(a[lo:hi], device, dtype) for a in self._arrs]
 
 
+class _NeszWeights:
+    """The crosspol channel's ``dsig_cr`` from its raw NESZ, as xsarsea's L1
+    example makes it (``nesz_flattening``, then ``get_dsig``), for the pieces
+    of one scene: the scene-wide pass's results on the device, in float64.
+
+    ``slope``, ``intercept``: each row's line (:func:`nesz_row_fit`);
+    ``inc_1d``: the incidence's column means; ``inc``: the flat scene
+    incidence in its own float dtype, or None when the incidence is a
+    ``(nx,)`` vector (then ``inc_1d`` is that vector); ``rows_nan``: a device
+    count of the rows left without a line.
+    """
+
+    def __init__(self, scheme, slope, intercept, inc_1d, inc):
+        self.scheme, self.slope, self.intercept = scheme, slope, intercept
+        self.inc_1d, self.inc = inc_1d, inc
+        self.rows_nan = torch.isnan(slope + intercept).sum()
+
+    def dsig(self, lo, hi, s0_cr):
+        """``dsig_cr`` of the flat range ``[lo, hi)``, from the linear crosspol
+        sigma0 ``s0_cr`` of those pixels, in float64."""
+        nesz = nesz_expand(self.slope, self.intercept, self.inc_1d, lo, hi)
+        if self.inc is None:
+            cols = torch.arange(lo, hi, device=nesz.device) % self.inc_1d.shape[0]
+            inc = self.inc_1d[cols]
+        else:
+            inc = self.inc[lo:hi].to(torch.float64)
+        return dsig_formula(self.scheme, inc, s0_cr.to(torch.float64), nesz)
+
+
+def _float_dtype(x):
+    """The float dtype that holds the values of array ``x`` (float32 at the
+    least), read from its dtype alone: a chunked array is not materialized."""
+    return torch.float64 if staging.torch_dtype(x.dtype) == torch.float64 else torch.float32
+
+
 class _LazySource:
     """Piece source running the reference's host prep piece by piece.
 
     The reference converts the whole scene up front (f64 dB conversion with
     the 1e-15 clip, windspeed.py:126-130); here each piece is prepared on
     its own, so host memory stays O(piece). ``s0_co``/``s0_cr``/``anc`` may
-    be None (NaN streams); ``dsig_cr`` may be a scalar or broadcastable.
+    be None (NaN streams); ``dsig_cr`` may be a scalar or broadcastable, or
+    the name of a ``get_dsig`` scheme with the raw crosspol NESZ ``nesz_cr``
+    of the scene's shape: :meth:`fit_nesz` then runs the scene-wide pass once
+    on the device, and each piece weights its own pixels there (``xs.dsig``).
     Incidence may be the scene shape or broadcastable to it: a scalar, a
     ``(nx,)``/``(1, nx)`` sample vector or a ``(ny, 1)`` line vector; then
     only the vector goes to the device and the flat stream is rebuilt
@@ -636,12 +676,14 @@ class _LazySource:
     """
 
     def __init__(self, shape, inc, s0_co=None, s0_cr=None, dsig_cr=0.1, anc=None,
-                 device_db=None):
+                 device_db=None, nesz_cr=None):
         self.shape = tuple(int(s) for s in shape)
         self.n = int(np.prod(self.shape, dtype=np.int64))
         self.inc, self.s0_co, self.s0_cr = inc, s0_co, s0_cr
         self.dsig_cr, self.anc = dsig_cr, anc
         self.device_db = device_db
+        self.nesz_cr = nesz_cr
+        self._weights = None
         self.inc_mode = "full"
         self._inc_div = 1
         inc_shape = tuple(int(s) for s in np.shape(inc))
@@ -660,6 +702,54 @@ class _LazySource:
             if s0_co is None and s0_cr is None:
                 raise ValueError("broadcastable incidence requires a sigma0 stream")
             self._inc_vec = np.ascontiguousarray(np.asarray(inc, dtype=np.float64).reshape(-1))
+        if isinstance(dsig_cr, str) or nesz_cr is not None:
+            self._check_nesz()
+
+    def _check_nesz(self):
+        if not isinstance(self.dsig_cr, str) or self.nesz_cr is None:
+            raise ValueError("dsig_cr from the crosspol NESZ takes both a dsig scheme name "
+                             "(dsig_cr=) and the raw linear NESZ (nesz_cr=)")
+        check_dsig_name(self.dsig_cr)
+        if self.s0_cr is None:
+            raise ValueError("dsig_cr from the NESZ needs the crosspol sigma0")
+        if len(self.shape) != 2 or tuple(np.shape(self.nesz_cr)) != self.shape:
+            raise ValueError(f"nesz_cr must have the (line, sample) shape of the scene "
+                             f"{self.shape}, got {tuple(np.shape(self.nesz_cr))}")
+        if not (self.inc_mode == "full" or (self.inc_mode == "sample" and self._inc_div > 1)):
+            raise ValueError("the NESZ flattening fits incidence along the samples: give it as "
+                             "the scene array or an (nx,)/(1, nx) sample vector")
+
+    def _whole(self, arr, device):
+        """The flat scene of a source array on ``device``, in its own float
+        dtype, staged in blocks so that the pinned buffers stay small."""
+        dtype = _float_dtype(arr)
+        step = 1 << 23
+        parts = [staging.to_device(self._read(arr, lo, min(lo + step, self.n)), device, dtype)
+                 for lo in range(0, self.n, step)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def fit_nesz(self, device):
+        """The scene-wide pass of the weighting from the NESZ (span
+        ``xs.nesz``): the scene's incidence and NESZ to the device, the
+        incidence's column means and each row's line, in float64. The scene
+        incidence stays on the device for the pieces, which take it from
+        there; the NESZ is dropped once fitted. Counts ``nesz_rows``."""
+        ny, nx = self.shape
+        f64 = torch.float64
+        inc = None
+        if self.inc_mode == "full":
+            inc = self._whole(self.inc, device)
+            inc_1d = torch.nanmean(inc.view(ny, nx).to(f64), dim=0)
+        else:
+            inc_1d = staging.to_device(self._inc_vec, device, f64)
+        noise = self._whole(self.nesz_cr, device).view(ny, nx).to(f64)
+        slope, intercept = nesz_row_fit(noise, inc_1d)
+        self._weights = _NeszWeights(self.dsig_cr, slope, intercept, inc_1d, inc)
+        count("nesz_rows", ny)
+
+    def rows_nan(self):
+        """Rows the NESZ fit left without a line (a read of the device's count)."""
+        return int(self._weights.rows_nan)
 
     def _read(self, arr, lo, hi):
         """Flat [lo, hi) of a source array: the span ``xs.read`` around
@@ -677,7 +767,9 @@ class _LazySource:
         return x
 
     def _db(self, arr, lo, hi, device, dtype):
-        x = self._read(arr, lo, hi)
+        return self._to_db(self._read(arr, lo, hi), device, dtype)
+
+    def _to_db(self, x, device, dtype):
         if self.device_db:  # linear to the device, log10 there
             x = staging.to_device(x, device, dtype)
             return 10.0 * torch.log10(x + 1e-15)
@@ -688,9 +780,22 @@ class _LazySource:
             x = 10.0 * np.log10(x + 1e-15)
         return staging.to_device(x, device, dtype)
 
+    def _db_linear(self, arr, lo, hi, device, dtype):
+        """A sigma0 stream in dB, as :meth:`_db` makes it, and its linear
+        values on the device in their own float dtype (the dsig weighting's
+        input): one copy when the dB is taken on the device."""
+        x = self._read(arr, lo, hi)
+        lin = staging.to_device(x, device, _float_dtype(x))
+        if self.device_db:
+            return 10.0 * torch.log10(lin.to(dtype) + 1e-15), lin
+        return self._to_db(x, device, dtype), lin
+
     def streams(self, lo, hi, device, dtype):
         m = hi - lo
-        if self.inc_mode == "full":
+        weights = self._weights
+        if weights is not None and weights.inc is not None:
+            inc = weights.inc[lo:hi].to(dtype)
+        elif self.inc_mode == "full":
             inc = staging.to_device(self._read(self.inc, lo, hi), device, dtype)
         else:
             vec = staging.to_device(self._inc_vec, device, dtype)
@@ -699,14 +804,21 @@ class _LazySource:
             inc = vec[pos]
         nanv = torch.full((m,), float("nan"), dtype=dtype, device=device)
         s0_co = nanv if self.s0_co is None else self._db(self.s0_co, lo, hi, device, dtype)
-        s0_cr = nanv if self.s0_cr is None else self._db(self.s0_cr, lo, hi, device, dtype)
-        if np.ndim(self.dsig_cr) == 0:
-            dsig = torch.full((m,), float(np.asarray(self.dsig_cr)), dtype=dtype, device=device)
+        if weights is None:
+            s0_cr = nanv if self.s0_cr is None else self._db(self.s0_cr, lo, hi, device, dtype)
+            if np.ndim(self.dsig_cr) == 0:
+                dsig = torch.full((m,), float(np.asarray(self.dsig_cr)), dtype=dtype,
+                                  device=device)
+            else:
+                d = self.dsig_cr
+                if tuple(np.shape(d)) != self.shape:
+                    d = np.broadcast_to(np.asarray(d), self.shape)
+                dsig = staging.to_device(self._read(d, lo, hi), device, dtype)
         else:
-            d = self.dsig_cr
-            if tuple(np.shape(d)) != self.shape:
-                d = np.broadcast_to(np.asarray(d), self.shape)
-            dsig = staging.to_device(self._read(d, lo, hi), device, dtype)
+            s0_cr, s0_cr_lin = self._db_linear(self.s0_cr, lo, hi, device, dtype)
+            with span("xs.dsig"):
+                dsig = weights.dsig(lo, hi, s0_cr_lin).to(dtype)
+            count("dsig_px", m)
         if self.anc is None:
             anc_re = anc_im = nanv
         else:
@@ -930,7 +1042,7 @@ def _any_valid(x):
 @timing(logger=logger.info)
 def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsig_co=0.1,
                       dsig_cr=0.1, model=None, dtype=None, mode="auto", piece_size=None,
-                      device_db=None, device="cuda", **kwargs):
+                      device_db=None, device="cuda", nesz_cr=None, **kwargs):
     """Invert sigma0 (linear) into wind speed and direction with GMF/LUT models.
 
     Mono-pol (copol or crosspol) with one model, or dual-pol with
@@ -943,6 +1055,16 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
     merges each piece before its copy out (the ``dual_merge`` kernel; a
     speed decides by its float32 modulus rounded once from float64), else
     numpy merges on the host (``np.abs``).
+
+    ``dsig_cr``: the crosspol cost's weight, a scalar or an array
+    broadcastable to the scene; or the name of a ``get_dsig`` scheme (e.g.
+    ``"gmf_s1_v2"``) with ``nesz_cr``, the crosspol channel's raw linear NESZ
+    of the scene's (line, sample) shape: the call then runs xsarsea's L1
+    example in one, ``nesz_flattening(nesz_cr, inc)`` and ``get_dsig(dsig_cr,
+    inc, sigma0_cr, nesz_flat)`` on the device, the rows fitted once a scene
+    in float64 and each piece weighted as it is prepared; the flattened NESZ
+    and the weights never come back to the host. ``inc`` is then the scene
+    array or an ``(nx,)`` sample vector.
 
     ``device``: where the inversion runs (default ``"cuda"``). ``dtype``:
     the tables' precision; default float32 on CUDA, float64 elsewhere.
@@ -960,14 +1082,21 @@ def invert_from_model(inc, sigma0, sigma0_dual=None, /, ancillary_wind=None, dsi
                 inc, sigma0, sigma0_dual, ancillary_wind, model)
         this.pixels = int(np.prod(shape, dtype=np.int64))
         tables = prepare_tables(models[0], models[1], dtype=dtype, **kwargs)
+        scheme = isinstance(dsig_cr, str)
         source = _LazySource(shape, raw_inc, s0_co=raw_s0_co, s0_cr=raw_s0_cr,
-                             dsig_cr=_raw_data(dsig_cr), anc=_raw_data(ancillary_wind),
-                             device_db=device_db)
+                             dsig_cr=dsig_cr if scheme else _raw_data(dsig_cr),
+                             anc=_raw_data(ancillary_wind), device_db=device_db,
+                             nesz_cr=_raw_data(nesz_cr))
+        if scheme:
+            with span("xs.nesz"):
+                source.fit_nesz(device)
         dual = sigma0_dual is not None
         # the winds are float32 on the card: merged there, piece by piece
         merge = dual and device.type == "cuda" and dtype == torch.float32
         wind_co, wind_dual = _invert_source(tables, source, dsig_co=dsig_co, mode=mode,
                                             device=device, piece_size=piece_size, merge=merge)
+        if scheme:  # the card is done with the call: no wait
+            count("nesz_rows_nan", source.rows_nan())
         with span("xs.merge"):
             template = next((v for v in (sigma0, inc) if isinstance(v, DimArray)), None)
             return _merge_and_wrap(wind_co.reshape(shape), wind_dual.reshape(shape), models,
